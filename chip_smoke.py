@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-It builds the port's CUDA kernels from trino_tpu_torch/csrc/, holds each
-kernel against its plain PyTorch version on the card (edge cases, then a
-timed 64 M-row TPC-H Q1-shaped input), and drives the port's main path —
-`Engine.query` on TPC-H scale factor 1 — through both kernels, checking every
-result against an independent numpy reference and against the same query on
-`Engine(device="cpu")`.  Each phase prints one JSON line; the last line of
+It builds the port's CUDA kernels from trino_tpu_torch/csrc/, holds each of
+the five against its plain PyTorch version on the card (edge cases, then
+timed inputs at the main path's largest shapes: a 64 Mi-row TPC-H
+Q1-shaped column set, an 8 Mi-row hash build and probe, four radix passes
+over 64 Mi keys), and drives the port's main path — `Engine.query` on TPC-H
+scale factor 1: Q1, Q6 and a min/max group-by through the segmented reduce
+and the fused pipeline, Q3 through the hash build and probe (and through
+the sort paths with kernels off), and the ten most expensive line items
+through radix select — checking every result against an independent numpy
+reference and against the same query on `Engine(device="cpu")`.  Each phase prints one JSON line; the last line of
 standard output is `{"ok": true, "device": {...}}`.  Any failed build,
 launch or comparison ends the run with a non-zero exit code.  Without a CUDA
 device it prints a message on stderr and exits 2.
 
 Options: `--scale F` (TPC-H scale factor of the main path, default 1.0),
-`--rows N` (rows of the timed kernel inputs, default 64 Mi), `--ptxas`
+`--rows N` (rows of the timed kernel inputs, default 64 Mi; the hash build
+and probe take N/8), `--ptxas`
 (print nvcc's per-kernel register / shared-memory report to stderr).
 """
 
@@ -34,6 +39,20 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
 FP64_OPS_PER_S = 33.5e12    # H100 SXM float64 / 64-bit ALU rate outside the tensor cores
 
+Q03 = """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+  o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+TOPN = (
+    "select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+    "order by l_extendedprice desc, l_orderkey, l_linenumber limit 10"
+)
 Q01 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
   sum(l_extendedprice) as sum_base_price,
@@ -88,8 +107,12 @@ def time_ms(fn, warmup: int, iters: int) -> float:
     return statistics.median(times)
 
 
-# largest double-sum error relative to sum|x| seen per kernel
-REL_ERR = {"segment_reduce": 0.0, "fused_pipeline": 0.0}
+# largest double-sum error relative to sum|x| seen per kernel (the integer
+# kernels are compared exactly and stay at 0)
+REL_ERR = {"segment_reduce": 0.0, "fused_pipeline": 0.0, "hash_build": 0.0,
+           "hash_probe": 0.0, "radix_histogram": 0.0}
+L2_BYTES = 50 * 1024 * 1024  # H100 L2
+SECTOR = 32  # bytes of device memory behind one random table-slot read
 
 
 def note_rel(kernel: str, err: float, scale: float) -> None:
@@ -306,6 +329,268 @@ def fused_edges(dev) -> float:
     return worst
 
 
+# ------------------------------------------- kernels 3 and 4: build / probe
+
+
+def same_partition(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two group-id vectors name the same groups: -1 in the same rows and a
+    one-to-one map between the other ids (ids come in claim order, which
+    changes from run to run on the card)."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    if not torch.equal(a < 0, b < 0):
+        return False
+    m = a >= 0
+    if not bool(m.any()):
+        return True
+    pairs = torch.unique(a[m] * (1 << 32) + b[m])
+    return pairs.numel() == torch.unique(a[m]).numel() == torch.unique(b[m]).numel()
+
+
+def hash_case(words, live, cap, what: str, got=None, keep_keys=True, probe=None) -> None:
+    """Kernel 3 against its plain version on the same rows (integer outputs
+    exact, ids as the same partition), then each version's table probed by
+    kernel 4 (`probe`: its wrapper) and by the plain probe with the build's
+    own rows: the two probes agree exactly, and every live row finds its own
+    build id."""
+    from trino_tpu_torch.ops.cuda import hashagg, hashjoin
+
+    probe = probe or hashjoin.probe_hash_table
+    if got is None:
+        got = hashagg.build_hash_table(words, live, cap, keep_keys=keep_keys)
+    gid, table, n_groups, overflow = got
+    torch.cuda.synchronize()
+    pgid, ptable, pn, pover = hashagg.plain_build_hash_table(words, live, cap, keep_keys=keep_keys)
+    if bool(overflow) != bool(pover):
+        fail(f"hash_build {what}: overflow {bool(overflow)} vs plain {bool(pover)}")
+    if bool(overflow):
+        return  # ids are unusable past the tier; both versions raised the flag
+    if int(n_groups) != int(pn):
+        fail(f"hash_build {what}: {int(n_groups)} groups vs plain {int(pn)}")
+    if not same_partition(gid, pgid):
+        fail(f"hash_build {what}: group ids are not the plain version's partition")
+    rows = live.nonzero().flatten()
+    for tab, ids, who in ((table, gid, "kernel"), (ptable, pgid, "plain")):
+        if keep_keys:
+            g = ids.index_select(0, rows).to(torch.int64)
+            for i, w in enumerate(words):
+                if not torch.equal(tab.group_keys[i].index_select(0, g), w.index_select(0, rows)):
+                    fail(f"hash_build {what}: {who} group_keys word {i} differs")
+        k, ku = probe(words, live, tab)
+        p, pu = hashjoin.plain_probe_hash_table(words, live, tab)
+        torch.cuda.synchronize()
+        if bool(ku) or bool(pu) or not torch.equal(k, p):
+            fail(f"hash_probe {what}: kernel and plain probe of the {who} table differ")
+        if not torch.equal(k, ids):
+            fail(f"hash_probe {what}: probing the {who} table with its own rows "
+                 "does not return their build ids")
+
+
+def probe_case(words, live, table, what: str, got=None) -> float:
+    """Kernel 4 against its plain version on the same table: exact."""
+    from trino_tpu_torch.ops.cuda import hashjoin
+
+    if got is None:
+        got = hashjoin.probe_hash_table(words, live, table)
+    gid, unres = got
+    torch.cuda.synchronize()
+    pgid, punres = hashjoin.plain_probe_hash_table(words, live, table)
+    if bool(unres) != bool(punres) or not torch.equal(gid, pgid):
+        fail(f"hash_probe {what}: kernel and plain version differ")
+    return float((gid >= 0).sum()) / max(1, int(live.sum()))
+
+
+def hash_edges(dev) -> None:
+    from trino_tpu_torch.ops.cuda import hashagg
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+
+    def ints(shape, lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    def keyed(base, n, live_frac=0.9):
+        pick = torch.randint(0, base.shape[0], (n,), generator=g, device=dev)
+        live = torch.rand(n, generator=g, device=dev) < live_frac
+        return [base[pick, i].contiguous() for i in range(base.shape[1])], live
+
+    hash_case([torch.empty(0, dtype=torch.int32, device=dev)],
+              torch.zeros(0, dtype=torch.bool, device=dev), 8, "empty")
+    words, _ = keyed(ints((100, 2)), 1000)
+    hash_case(words, torch.zeros(1000, dtype=torch.bool, device=dev), 128, "all dead")
+    words, live = keyed(ints((1, 2)), 100003)
+    hash_case(words, live, 16, "all keys equal")
+    # start slots at T - 1: the walk of every key after the first wraps to 0
+    cap = 4096
+    T = hashagg.table_size(cap)
+    cand = ints((1 << 20,))
+    slot = hashagg.hash_words([cand], torch.ones_like(cand, dtype=torch.bool)) & (T - 1)
+    last = cand[slot >= T - 2][:24].reshape(-1, 1)
+    if last.shape[0] < 8:
+        fail("hash edge: found too few keys whose start slot is T-1 or T-2")
+    words, live = keyed(last, 50000)
+    hash_case(words, live, cap, "start slots at T-1")
+    # NULL keys through the validity word: equal payloads, different validity
+    payload = ints((500, 2))
+    words, live = keyed(payload, 200000)
+    validity = (torch.rand(200000, generator=g, device=dev) < 0.3).to(torch.int32)
+    hash_case(words + [validity], live, 1024, "validity word")
+    words, live = keyed(ints((20000, 6)), 300000)
+    hash_case(words, live, 32768, "6-word keys")
+    words, live = keyed(ints((3000, 2)), 50000, 1.0)
+    got = hashagg.build_hash_table(words, live, 1024)
+    if not bool(got[3]):
+        fail("hash_build: 3000 keys under cap 1024 did not raise overflow")
+    hash_case(words, live, 1024, "n_groups > cap", got=got)
+
+
+def hash_timed(dev, n: int) -> list:
+    """Q3's largest hash shapes (n = 8 Mi by default): a build of n rows
+    (n/8 distinct 2-word keys) into a join-sized table (cap = rows: 2^24
+    slots, 192 MB, at 8 Mi), and a probe of n rows into it, half of them
+    hits."""
+    from trino_tpu_torch.ops.cuda import hashagg, hashjoin
+
+    distinct, W = max(1, n // 8), 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(37)
+    base = torch.randint(-2**31, 2**31 - 1, (2 * distinct, W), generator=g, device=dev,
+                         dtype=torch.int32)
+    pick = torch.randint(0, distinct, (n,), generator=g, device=dev)
+    words = [base[pick, i].contiguous() for i in range(W)]
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    cap = n
+    T = hashagg.table_size(cap)
+    got = hashagg.build_hash_table(words, live, cap, keep_keys=False)
+    hash_case(words, live, cap, f"timed n={n}", got=got, keep_keys=False)
+    table = got[1]
+    b_ms = time_ms(lambda: hashagg.build_hash_table(words, live, cap, keep_keys=False), 2, 10)
+    b_plain = time_ms(lambda: hashagg.plain_build_hash_table(words, live, cap, keep_keys=False), 1, 3)
+    stacked = torch.stack(words, 1)
+    b_lib = time_ms(lambda: torch.unique(stacked, dim=0, return_inverse=True), 1, 5)
+
+    # probe rows: half from the built keys, half from keys never built
+    hit = torch.rand(n, generator=g, device=dev) < 0.5
+    q = torch.where(hit, torch.randint(0, distinct, (n,), generator=g, device=dev),
+                    torch.randint(distinct, 2 * distinct, (n,), generator=g, device=dev))
+    pwords = [base[q, i].contiguous() for i in range(W)]
+    hit_share = probe_case(pwords, live, table, f"timed n={n}")
+    if abs(hit_share - 0.5) > max(0.01, 3.0 / n ** 0.5):
+        fail(f"hash_probe timed: hit share {hit_share}, expected ~0.5")
+    p_ms = time_ms(lambda: hashjoin.probe_hash_table(pwords, live, table), 2, 10)
+    p_plain = time_ms(lambda: hashjoin.plain_probe_hash_table(pwords, live, table), 1, 3)
+
+    def packed(ws):
+        return (ws[0].to(torch.int64) & 0xFFFFFFFF) | (ws[1].to(torch.int64) << 32)
+
+    sorted_build = torch.unique(packed(words))  # sorted
+    probe_keys = packed(pwords)
+    p_lib = time_ms(lambda: torch.searchsorted(sorted_build, probe_keys), 2, 10)
+
+    def bound(ws, lv):
+        # stream: the words and the live byte in, the id out; past L2, one
+        # random sector per distinct start slot the rows touch
+        stream = n * (4 * W + 1) + 4 * n
+        touched = torch.unique(hashagg.hash_words(ws, lv) & (T - 1)).numel()
+        extra = SECTOR * touched if T * 4 * (1 + W) > L2_BYTES else 0
+        return (stream + extra) / HBM_BYTES_PER_S * 1e3, stream + extra
+
+    b_bound, b_bytes = bound(words, live)
+    p_bound, p_bytes = bound(pwords, live)
+    return [
+        {"name": "hash_build", "ms": b_ms, "plain": b_plain, "lib": b_lib, "bound": b_bound,
+         "bytes": b_bytes, "rows": n, "table_slots": T},
+        {"name": "hash_probe", "ms": p_ms, "plain": p_plain, "lib": p_lib, "bound": p_bound,
+         "bytes": p_bytes, "rows": n, "table_slots": T},
+    ]
+
+
+# -------------------------------------------- kernel 5: radix_histogram
+
+
+def hist_case(u, live, prefix, shift, what: str, got=None) -> torch.Tensor:
+    from trino_tpu_torch.ops.cuda import topk
+
+    if got is None:
+        got = topk.radix_histogram(u, live, prefix, shift)
+    torch.cuda.synchronize()
+    want = topk.plain_radix_histogram(u, live, prefix, shift)
+    if not torch.equal(got, want):
+        fail(f"radix_histogram {what} shift {shift}: kernel and plain version differ")
+    return got
+
+
+def radix_case(u, live, k: int, what: str):
+    """Four passes of kernel 5, each held against its plain version at the
+    prefix the selection reached; the threshold against an independent sort:
+    the K-th largest live key (the smallest live key when K exceeds them)."""
+    from trino_tpu_torch.ops.cuda import topk
+
+    real = topk.radix_histogram
+    passes = []
+
+    def checked(uu, lv, prefix, shift):
+        passes.append((prefix.clone(), shift))
+        return hist_case(uu, lv, prefix, shift, what, got=real(uu, lv, prefix, shift))
+
+    topk.radix_histogram = checked
+    try:
+        thr = int(topk.radix_topk_threshold(u, live, k))
+    finally:
+        topk.radix_histogram = real
+    keys = (u.to(torch.int64) & 0xFFFFFFFF)[live]
+    if keys.numel():
+        want = int(torch.sort(keys, descending=True).values[min(k, keys.numel()) - 1])
+        if thr != want:
+            fail(f"radix select {what}: threshold {thr}, the {k}-th largest key is {want}")
+    return passes
+
+
+def radix_edges(dev) -> None:
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    n = 100003
+
+    def u32(x):
+        return x.to(torch.int32)
+
+    live = torch.rand(n, generator=g, device=dev) < 0.9
+    rnd = u32(torch.randint(0, 2**32, (n,), generator=g, device=dev, dtype=torch.int64))
+    prices = u32(torch.randint(90000, 10500000, (n,), generator=g, device=dev) + 2**31)
+    radix_case(torch.empty(0, dtype=torch.int32, device=dev),
+               torch.zeros(0, dtype=torch.bool, device=dev), 10, "empty")
+    radix_case(rnd, torch.zeros(n, dtype=torch.bool, device=dev), 10, "all dead")
+    radix_case(torch.full((n,), -7, dtype=torch.int32, device=dev), live, 10, "all keys equal")
+    for k in (1, 10, 4096):
+        radix_case(rnd, live, k, f"random keys k={k}")
+        radix_case(prices, live, k, f"int32-mapped prices k={k}")
+    few = torch.rand(n, generator=g, device=dev) < 0.00005
+    radix_case(rnd, few, 10, "fewer live rows than K")
+
+
+def radix_timed(dev, n: int) -> dict:
+    """Four passes over n keys (64 Mi by default) shaped like the topn
+    statement's: int32-mapped prices, so the first byte is one bin for every
+    row."""
+    from trino_tpu_torch.ops.cuda import topk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    u = (torch.randint(90000, 10500000, (n,), generator=g, device=dev) + 2**31).to(torch.int32)
+    live = torch.rand(n, generator=g, device=dev) < 0.9
+    passes = radix_case(u, live, 10, f"timed n={n}")
+    k_ms = time_ms(lambda: [topk.radix_histogram(u, live, p, s) for p, s in passes], 2, 10)
+    plain_ms = time_ms(lambda: [topk.plain_radix_histogram(u, live, p, s) for p, s in passes], 1, 3)
+    masked = []
+    for p, s in passes:
+        byte, in_prefix = topk._byte_and_match(u, live, p, s)
+        masked.append(torch.where(in_prefix, byte, 256))
+    lib_ms = time_ms(lambda: [torch.bincount(m, minlength=257) for m in masked], 2, 10)
+    in_bytes = n * 4 + n  # the keys and the live bytes, each read once
+    return {"name": "radix_histogram", "ms": k_ms, "plain": plain_ms, "lib": lib_ms,
+            "bound": (in_bytes + 256 * 8) / HBM_BYTES_PER_S * 1e3, "bytes": in_bytes,
+            "rows": n, "passes": len(passes)}
+
+
 # ----------------------------------------------- timed Q1-shaped 64 M rows
 
 
@@ -397,16 +682,24 @@ def kernels_phase(engine, dev, n_rows):
     k1_out = len(reds) * 6 * 8
     k1_bytes_ms = (k1_in + k1_out) / HBM_BYTES_PER_S * 1e3
     k1_ops_ms = n * len(reds) / FP64_OPS_PER_S * 1e3
-    def row(name, source, replaces, err, ms, plain, b_ms, o_ms, lib, in_bytes):
+    def row(name, source, replaces, err, ms, plain, b_ms, o_ms, lib, in_bytes, rows=n, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err,
             "max_err_over_sum_abs": REL_ERR[name], "ms": ms, "kernel_ms": ms,
             "plain_ms": plain, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": lib, "rows": n, "input_bytes": in_bytes,
+            "library_ms": lib, "rows": rows, "input_bytes": in_bytes, **extra,
         }
 
+    # ---- kernels 3-5: edge cases, then Q3's largest shapes (integer
+    # outputs, compared exactly: max_abs_err 0)
+    hash_edges(dev)
+    radix_edges(dev)
+    build, probe = hash_timed(dev, n_rows // 8)
+    radix = radix_timed(dev, n_rows)
+    # the hash kernels do a few integer operations per slot visited and the
+    # histogram a few per row: far under the card's rate, so bytes bound them
     return [
         row("segment_reduce", "trino_tpu_torch/csrc/segreduce.cu",
             "trino_tpu/ops/pallas/segreduce.py:107", err1, k1_ms, k1_plain,
@@ -414,6 +707,18 @@ def kernels_phase(engine, dev, n_rows):
         row("fused_pipeline", "trino_tpu_torch/csrc/fused_pipeline.cu",
             "trino_tpu/ops/pallas/fused.py:572", err2, k2_ms, k2_plain,
             k2_bytes_ms, k2_ops_ms, None, k2_in),
+        row("hash_build", "trino_tpu_torch/csrc/hashagg.cu",
+            "trino_tpu/ops/pallas/hashagg.py:167", 0.0, build["ms"], build["plain"],
+            build["bound"], 0.0, build["lib"], build["bytes"], rows=build["rows"],
+            table_slots=build["table_slots"]),
+        row("hash_probe", "trino_tpu_torch/csrc/hashjoin.cu",
+            "trino_tpu/ops/pallas/hashjoin.py:48", 0.0, probe["ms"], probe["plain"],
+            probe["bound"], 0.0, probe["lib"], probe["bytes"], rows=probe["rows"],
+            table_slots=probe["table_slots"]),
+        row("radix_histogram", "trino_tpu_torch/csrc/topk.cu",
+            "trino_tpu/ops/pallas/topk.py:80", 0.0, radix["ms"], radix["plain"],
+            radix["bound"], 0.0, radix["lib"], radix["bytes"], rows=radix["rows"],
+            passes=radix["passes"]),
     ]
 
 
@@ -429,9 +734,10 @@ def dec(unscaled: int, scale: int) -> Decimal:
     return Decimal(unscaled).scaleb(-scale)
 
 
-def reference_rows(li: dict) -> dict:
-    """Q1, Q6 and the min/max query over the generated lineitem columns, in
-    numpy and python ints — independent of the engine's code."""
+def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
+    """Q1, Q6, the min/max query, Q3 and the topn statement over the
+    generated columns, in numpy and python ints — independent of the
+    engine's code.  Sums are int64 (np.add.at), never float weights."""
     import datetime
 
     qty, price = li["l_quantity"].astype(np.int64), li["l_extendedprice"].astype(np.int64)
@@ -467,7 +773,33 @@ def reference_rows(li: dict) -> dict:
             str(f), (epoch + datetime.timedelta(days=int(ship[m].min()))).isoformat(),
             int(price[m].max()) / 100.0, int(m.sum()),
         ))
-    return {"q01": q1, "q06": q6, "minmax": qmm}
+
+    # Q3: BUILDING customers' orders before the cut, their lines shipped after
+    cut = day(1995, 3, 15)
+    building = customer["c_custkey"][np.asarray(customer["c_mktsegment"]) == "BUILDING"]
+    om = np.isin(orders["o_custkey"], building) & (orders["o_orderdate"] < cut)
+    okey = orders["o_orderkey"][om]
+    by_key = np.argsort(okey)
+    okey_s = okey[by_key]
+    odate_s = orders["o_orderdate"][om][by_key]
+    oprio_s = orders["o_shippriority"][om][by_key]
+    lm = (ship > cut) & np.isin(li["l_orderkey"], okey)
+    keys, inv = np.unique(li["l_orderkey"][lm], return_inverse=True)
+    revenue = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(revenue, inv, price[lm] * (100 - disc[lm]))  # scale 4
+    at = np.searchsorted(okey_s, keys)
+    date_k, prio_k = odate_s[at], oprio_s[at]
+    top = np.lexsort((date_k, -revenue))[:10]
+    q3 = [
+        (int(keys[i]), dec(int(revenue[i]), 4),
+         (epoch + datetime.timedelta(days=int(date_k[i]))).isoformat(), int(prio_k[i]))
+        for i in top
+    ]
+    # the ten most expensive line items
+    lk, ln = li["l_orderkey"].astype(np.int64), li["l_linenumber"].astype(np.int64)
+    top = np.lexsort((ln, lk, -price))[:10]
+    topn = [(int(lk[i]), int(ln[i]), int(price[i]) / 100.0) for i in top]
+    return {"q01": q1, "q06": q6, "minmax": qmm, "q03": q3, "topn": topn}
 
 
 def rows_match(got, want, what: str) -> None:
@@ -485,51 +817,96 @@ def rows_match(got, want, what: str) -> None:
 
 
 def check_main_path_calls(engine, lines) -> list:
-    """Run the main path's statements once more with both kernel wrappers
-    shadowed: every call the engine makes is held against the kernel's plain
+    """Run the main path's statements once more with every kernel wrapper
+    shadowed: each call the engine makes is held against the kernel's plain
     version on the very tensors the engine passed, and timed there.  (These
     launches come after the main path's counts were read.)"""
-    from trino_tpu_torch.ops.cuda import fused
+    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
     from trino_tpu_torch.ops.cuda import segreduce as sr
 
-    real_reduce, real_run = sr.fused_segment_reduce, fused.run
+    real = {
+        "reduce": sr.fused_segment_reduce, "run": fused.run,
+        "build": hashagg.build_hash_table, "probe": hashjoin.probe_hash_table,
+        "hist": topk.radix_histogram,
+    }
     calls = []
     current = [""]
 
     def checked_reduce(seg, reds, G, **kw):
-        got = real_reduce(seg, reds, G, **kw)
+        got = real["reduce"](seg, reds, G, **kw)
         err = segreduce_case(seg, reds, G, f"main path {current[0]}", got=got)
         calls.append({
             "kernel": "segment_reduce", "statement": current[0], "rows": int(seg.shape[0]),
             "groups": int(G), "reductions": len(reds), "max_abs_err": err,
-            "ms": time_ms(lambda: real_reduce(seg, reds, G, **kw), 1, 5),
+            "ms": time_ms(lambda: real["reduce"](seg, reds, G, **kw), 1, 5),
             "plain_ms": time_ms(lambda: sr.plain_segment_reduce(seg, reds, G), 1, 3),
         })
         return got
 
     def checked_run(recipe, cols, live):
-        got = real_run(recipe, cols, live)
+        got = real["run"](recipe, cols, live)
         err = fused_case(recipe, cols, live, f"main path {current[0]}", got=got)
         calls.append({
             "kernel": "fused_pipeline", "statement": current[0],
             "rows": int(cols[recipe.table[0][1]].data.shape[0]),
             "groups": int(recipe.domain), "instructions": len(recipe.program),
             "streams": len(recipe.streams), "max_abs_err": err,
-            "ms": time_ms(lambda: real_run(recipe, cols, live), 1, 5),
+            "ms": time_ms(lambda: real["run"](recipe, cols, live), 1, 5),
             "plain_ms": time_ms(lambda: fused.run_plain(recipe, cols, live), 1, 3),
         })
         return got
 
+    def checked_build(words, live, cap, **kw):
+        got = real["build"](words, live, cap, **kw)
+        hash_case(words, live, cap, f"main path {current[0]}", got=got,
+                  keep_keys=kw.get("keep_keys", True), probe=real["probe"])
+        calls.append({
+            "kernel": "hash_build", "statement": current[0], "rows": int(live.shape[0]),
+            "live_rows": int(live.sum()), "words": len(words), "cap": int(cap),
+            "table_slots": got[1].size, "groups": int(got[2]), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: real["build"](words, live, cap, **kw), 1, 5),
+            "plain_ms": time_ms(lambda: hashagg.plain_build_hash_table(words, live, cap, **kw), 1, 3),
+        })
+        return got
+
+    def checked_probe(words, live, table):
+        got = real["probe"](words, live, table)
+        hits = probe_case(words, live, table, f"main path {current[0]}", got=got)
+        calls.append({
+            "kernel": "hash_probe", "statement": current[0], "rows": int(live.shape[0]),
+            "live_rows": int(live.sum()), "words": len(words), "table_slots": table.size,
+            "hit_share": hits, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: real["probe"](words, live, table), 1, 5),
+            "plain_ms": time_ms(lambda: hashjoin.plain_probe_hash_table(words, live, table), 1, 3),
+        })
+        return got
+
+    def checked_hist(u, live, prefix, shift):
+        got = hist_case(u, live, prefix, shift, f"main path {current[0]}",
+                        got=real["hist"](u, live, prefix, shift))
+        calls.append({
+            "kernel": "radix_histogram", "statement": current[0], "rows": int(u.shape[0]),
+            "shift": shift, "counted": int(got.sum()), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: real["hist"](u, live, prefix, shift), 1, 5),
+            "plain_ms": time_ms(lambda: topk.plain_radix_histogram(u, live, prefix, shift), 1, 3),
+        })
+        return got
+
     sr.fused_segment_reduce, fused.run = checked_reduce, checked_run
+    hashagg.build_hash_table, hashjoin.probe_hash_table = checked_build, checked_probe
+    topk.radix_histogram = checked_hist
     try:
         for variant, flag, name, sql, _, _ in lines:
             engine.execute(f"set session data_plane_kernels = {flag}")
             current[0] = f"{name}/{variant}"
             engine.query(sql)
     finally:
-        sr.fused_segment_reduce, fused.run = real_reduce, real_run
-    if len(calls) < len(lines):
-        fail(f"main path made {len(calls)} kernel calls over {len(lines)} statements")
+        sr.fused_segment_reduce, fused.run = real["reduce"], real["run"]
+        hashagg.build_hash_table, hashjoin.probe_hash_table = real["build"], real["probe"]
+        topk.radix_histogram = real["hist"]
+    seen = {c["kernel"] for c in calls}
+    if seen != set(KERNEL_NAMES):
+        fail(f"main path calls reached {sorted(seen)}, not every kernel")
     return calls
 
 
@@ -566,63 +943,95 @@ def device_busy(engine, sql, runs: int = 5) -> dict:
             "top_kernels": [[k[:60], round(v, 4)] for k, v in top]}
 
 
+KERNEL_NAMES = ("segment_reduce", "fused_pipeline", "hash_build", "hash_probe",
+                "radix_histogram")
+
+
+def kernel_counts() -> dict:
+    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
+    from trino_tpu_torch.ops.cuda import segreduce as sr
+
+    return dict(zip(KERNEL_NAMES, (sr.launches(), fused.launches(), hashagg.launches(),
+                                   hashjoin.launches(), topk.launches())))
+
+
+def reset_kernel_counts() -> None:
+    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
+    from trino_tpu_torch.ops.cuda import segreduce as sr
+
+    for mod in (sr, fused, hashagg, hashjoin, topk):
+        mod.reset_launches()
+
+
 def main_path_phase(engine, cpu_engine, scale):
     from trino_tpu_torch.connectors.tpch import tpch_data
     from trino_tpu_torch.ops import kernels
-    from trino_tpu_torch.ops.cuda import fused
-    from trino_tpu_torch.ops.cuda import segreduce as sr
 
     t0 = time.perf_counter()
     li = tpch_data("lineitem", scale)
+    orders, customer = tpch_data("orders", scale), tpch_data("customer", scale)
     gen_s = time.perf_counter() - t0
-    want = reference_rows(li)
+    want = reference_rows(li, orders, customer)
     emit({"phase": "main_path", "step": "data", "scale": scale,
-          "lineitem_rows": int(len(li["l_quantity"])), "generate_s": round(gen_s, 3)})
+          "lineitem_rows": int(len(li["l_quantity"])), "orders_rows": int(len(orders["o_orderkey"])),
+          "customer_rows": int(len(customer["c_custkey"])), "generate_s": round(gen_s, 3)})
 
-    queries = {"q01": Q01, "q06": Q06, "minmax": QMM}
+    queries = {"q01": Q01, "q06": Q06, "minmax": QMM, "q03": Q03, "topn": TOPN}
+    # (variant, data_plane_kernels, statements, dispatch the run must show:
+    # (op, impl, at least this many times))
     variants = [
-        ("fused", "true", ("q01", "q06"), "fused_pipeline"),
-        ("operators", "false", ("q01", "q06"), "segment_reduce"),
-        ("minmax", "true", ("minmax",), "segment_reduce"),
+        ("fused", "true", ("q01", "q06"), [("fused_pipeline", "cuda", 1)]),
+        ("operators", "false", ("q01", "q06"), [("segment_reduce", "cuda", 1)]),
+        ("minmax", "true", ("minmax",), [("segment_reduce", "cuda", 1)]),
+        ("hash", "true", ("q03",),
+         [("join", "cuda", 2), ("group_by", "cuda", 1), ("segment_reduce", "cuda", 1)]),
+        ("sort", "false", ("q03",),
+         [("join", "sort", 2), ("group_by", "sort", 1), ("segment_reduce", "cuda", 1)]),
+        ("radix", "true", ("topn",), [("topn", "cuda", 1)]),
     ]
     # every count to 0 just before the main path, read just after
-    sr.reset_launches()
-    fused.reset_launches()
+    reset_kernel_counts()
     launches = {}
     lines = []
-    for variant, flag, names, want_op in variants:
+    for variant, flag, names, must in variants:
         engine.execute(f"set session data_plane_kernels = {flag}")
         for name in names:
             sql = queries[name]
-            before = (sr.launches(), fused.launches())
+            before = kernel_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rows = engine.query(sql)
             torch.cuda.synchronize()
             cold_ms = (time.perf_counter() - t0) * 1e3
-            after = (sr.launches(), fused.launches())
+            retries = list(engine.executor.last_retries)
+            after = kernel_counts()
             rows_match(rows, want[name], f"{name}/{variant} on cuda vs numpy reference")
             events = kernels.events_for(engine.plan(sql))
-            if not any(op == want_op and impl == "cuda" for op, impl, _ in events):
-                fail(f"{name}/{variant}: dispatch events {events} lack {want_op}/cuda")
-            launches[f"{name}/{variant}"] = {
-                "segment_reduce": after[0] - before[0],
-                "fused_pipeline": after[1] - before[1],
-            }
-            lines.append((variant, flag, name, sql, cold_ms, events))
-    main_counts = {"segment_reduce": sr.launches(), "fused_pipeline": fused.launches()}
-    if main_counts["fused_pipeline"] < 2 or main_counts["segment_reduce"] < 3:
-        fail(f"main path launched too few kernels: {main_counts}")
+            for op, impl, times in must:
+                seen = sum(1 for e in events if e[0] == op and e[1] == impl)
+                if seen < times:
+                    fail(f"{name}/{variant}: dispatch events {events} show {op}/{impl} "
+                         f"{seen} times, expected {times}")
+            if name == "topn" and retries:
+                fail(f"topn/{variant}: the first run re-ran for {retries}")
+            launches[f"{name}/{variant}"] = {k: after[k] - before[k] for k in KERNEL_NAMES}
+            lines.append((variant, flag, name, sql, cold_ms, events, retries))
+    main_counts = kernel_counts()
+    for k in KERNEL_NAMES:
+        if main_counts[k] < 1:
+            fail(f"main path never launched {k}: {main_counts}")
 
     # launches made from here on are not part of the main path's count
     emit({"phase": "main_path", "step": "kernel_calls",
-          "calls": check_main_path_calls(engine, lines)})
+          "calls": check_main_path_calls(engine, [ln[:6] for ln in lines])})
 
     # the same statements on the CPU engine, and warm timings
-    for variant, flag, name, sql, cold_ms, events in lines:
+    for variant, flag, name, sql, cold_ms, events, retries in lines:
         cpu_engine.execute(f"set session data_plane_kernels = {flag}")
         engine.execute(f"set session data_plane_kernels = {flag}")
+        t0 = time.perf_counter()
         cpu_rows = cpu_engine.query(sql)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
         rows_match(cpu_rows, want[name], f"{name}/{variant} on cpu vs numpy reference")
         rows_match(engine.query(sql), cpu_rows, f"{name}/{variant} cuda vs cpu engine")
         warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
@@ -652,7 +1061,8 @@ def main_path_phase(engine, cpu_engine, scale):
             "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
             "cold_ms": cold_ms, "warm_ms": warm_ms, "device_idle_share": idle, **busy,
             "plan_ms": statistics.median(plan_ms), "execute_ms": statistics.median(exec_ms),
-            "fetch_ms": statistics.median(fetch_ms),
+            "fetch_ms": statistics.median(fetch_ms), "cpu_engine_ms": cpu_ms,
+            "first_run_retries": retries,
             "launches": launches[f"{name}/{variant}"],
             "dispatch": [[op, impl] for op, impl, _ in events],
         })

@@ -1,6 +1,7 @@
-"""The slice as a whole: `Engine.query` of the port (device="cpu") against
-the reference engine and the sqlite oracle, through the fused pipeline
-(data_plane_kernels on) and through the operator-at-a-time path (off)."""
+"""The port as a whole: `Engine.query` of the port (device="cpu") against
+the reference engine and the sqlite oracle, through the kernels' plain
+versions (data_plane_kernels on: fused pipeline, hash joins and group-bys)
+and through the operator-at-a-time and sort paths (off)."""
 
 import pytest
 try:  # arrow before torch: loaded after it, arrow's parquet writer crashes the process
@@ -134,7 +135,92 @@ def test_set_session_and_unported_plan_nodes(engines):
     assert port.execute("set session data_plane_kernels = false") == [(1,)]
     assert port.session.get("data_plane_kernels") is False
     port.execute("set session data_plane_kernels = true")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        port.query(QUERIES["q03"])  # joins are the next slice
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        port.query("select l_orderkey, count(*) from lineitem group by l_orderkey")
+        port.query("select l_orderkey, count(distinct l_partkey) from lineitem group by l_orderkey")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        port.query("select l_orderkey, rank() over (order by l_quantity) from lineitem")
+
+
+# The second slice: joins of every shape the planner emits for TPC-H, the
+# hash GROUP BY, DISTINCT, TopN by radix select, scalar subqueries.  Each
+# name maps to (sql, ordered, {data_plane_kernels: expected (op, impl)
+# dispatch events in plan order}).
+_Q = "select l_orderkey, l_linenumber, l_extendedprice from lineitem"
+JOIN_STATEMENTS = {
+    "q03": (QUERIES["q03"], ORDERED["q03"], {
+        True: [("join", "torch"), ("join", "torch"), ("group_by", "torch"),
+               ("segment_reduce", "torch"), ("topn", "sort")],
+        False: [("join", "sort"), ("join", "sort"), ("group_by", "sort"),
+                ("segment_reduce", "torch"), ("topn", "sort")],
+    }),
+    # the ten most expensive line items: radix select (forced at SF 0.01)
+    "topn": (_Q + " order by l_extendedprice desc, l_orderkey, l_linenumber limit 10", True, {
+        flag: [("topn", "torch"), ("segment_reduce", "torch")] for flag in (True, False)
+    }),
+    "semi": ("select count(*) from orders where o_orderkey in "
+             "(select l_orderkey from lineitem where l_quantity > 49)", True, None),
+    "anti": ("select count(*) from customer where not exists "
+             "(select * from orders where o_custkey = c_custkey)", True, None),
+    "left": ("select c_custkey, count(o_orderkey) from customer left join orders "
+             "on c_custkey = o_custkey and o_orderstatus = 'F' "
+             "group by c_custkey order by 2 desc, 1 limit 10", True, None),
+    "distinct": ("select count(*), min(l_partkey), max(l_suppkey) from "
+                 "(select distinct l_partkey, l_suppkey from lineitem)", True, {
+                     True: [("group_by", "torch"), ("segment_reduce", "torch")],
+                     False: [("group_by", "sort"), ("segment_reduce", "torch")],
+                 }),
+    "scalar": ("select count(*) from lineitem where l_extendedprice > "
+               "(select avg(l_extendedprice) from lineitem)", True, None),
+}
+_JOIN_REF_ROWS: dict = {}
+
+
+@pytest.mark.parametrize("kernels_on", [True, False], ids=["kernels_on", "kernels_off"])
+@pytest.mark.parametrize("name", sorted(JOIN_STATEMENTS))
+def test_join_topn_statements_equal_reference_and_oracle(
+    name, kernels_on, engines, oracle, monkeypatch
+):
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.ops.cuda import topk
+
+    ref, port = engines
+    sql, ordered, dispatch = JOIN_STATEMENTS[name]
+    if name not in _JOIN_REF_ROWS:
+        _JOIN_REF_ROWS[name] = ref.query(sql)
+    monkeypatch.setattr(topk, "FORCE", True)  # 60k rows: under the radix size
+    port.execute(f"set session data_plane_kernels = {'true' if kernels_on else 'false'}")
+    try:
+        rows = port.query(sql)
+    finally:
+        port.execute("set session data_plane_kernels = true")
+    assert_rows_equal(rows, _JOIN_REF_ROWS[name], ordered=ordered)
+    assert_rows_equal(rows, oracle.query(sql), ordered=ordered)
+    events = [(op, impl) for op, impl, _ in kernels.events_for(port.plan(sql))]
+    if dispatch is not None:
+        assert events == dispatch[kernels_on]
+    if name in ("semi", "anti", "left"):
+        assert ("join", "torch" if kernels_on else "sort") in events
+
+
+def test_scalar_subquery_of_many_rows_raises(engines):
+    _, port = engines
+    with pytest.raises(RuntimeError, match="multiple rows"):
+        port.query("select count(*) from orders where o_totalprice = "
+                   "(select o_totalprice from orders)")
+
+
+def test_failed_hash_join_reruns_on_the_sort_path(engines, monkeypatch):
+    """A probe walk past its budget sets the join's guard; the executor
+    re-runs the plan with that join sorted and the rows stay right."""
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.ops.cuda import hashjoin
+
+    _, port = engines
+    sql = JOIN_STATEMENTS["semi"][0]
+    want = port.query(sql)
+    monkeypatch.setattr(hashjoin, "PROBE_LIMIT", 0)
+    port.executor._learned_caps.clear()
+    assert port.query(sql) == want
+    events = [(op, impl) for op, impl, _ in kernels.events_for(port.plan(sql))]
+    assert ("join", "sort") in events and ("join", "torch") not in events
+    port.executor._learned_caps.clear()

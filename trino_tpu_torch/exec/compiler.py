@@ -15,8 +15,16 @@ operator output, so pages can be compared column by column with the
 reference's.  All required sizes of a run come back to the host in ONE
 packed transfer.
 
-This slice handles TableScan, Filter, Project, Compact, Aggregate, Sort and
-Limit; other nodes raise NotImplementedError naming their ROADMAP item.
+The port handles TableScan, Filter, Project, Compact, Aggregate, Distinct,
+Join (every kind, cross joins against a single row included), Sort, TopN,
+Limit and EnforceSingleRow; other nodes raise NotImplementedError naming
+their ROADMAP item.
+
+Two more facts ride the packed `required` transfer: EnforceSingleRow's live
+count (key -(nid+1); the host raises past one row) and each hash join's
+runtime guard (key _JOIN_GUARD + nid; a set guard — the build overflowed or
+a probe walk ran past its budget — re-runs the plan with that join on the
+sort path).
 """
 
 from __future__ import annotations
@@ -29,18 +37,19 @@ import torch
 from .. import resolve_device
 from ..connectors.spi import CatalogManager
 from ..data.page import Column, Page
-from ..ops.expr import ColumnVal, column_val, eval_expr, eval_predicate
+from ..ops.expr import ColumnVal, column_val, eval_expr, eval_predicate, translate_codes
 from ..ops.relops import (
-    AggSpec, SortSpec, compact_rows, group_aggregate, limit_mask, sort_rows,
+    AggSpec, SortSpec, broadcast_single_row, compact_rows, equi_join,
+    group_aggregate, limit_mask, sort_rows, top_n,
 )
 from ..plan.nodes import (
-    Aggregate, Compact, Filter, Limit, PlanNode, Project, Sort, TableScan,
+    Aggregate, Compact, Distinct, EnforceSingleRow, Filter, Join, Limit,
+    PlanNode, Project, Sort, TableScan, TopN,
 )
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
 _ROADMAP_ITEM = {
-    "Join": "A.6", "TopN": "A.6", "Distinct": "A.6", "EnforceSingleRow": "A.6",
     "Concat": "A.7", "Values": "A.7", "Unnest": "A.7",
     "Window": "A.8", "MatchRecognize": "A.8",
     "Exchange": "A.10", "RemoteSource": "A.10",
@@ -74,6 +83,10 @@ def _pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+# `required` key of a hash join's runtime guard: _JOIN_GUARD + node id
+_JOIN_GUARD = 1 << 40
+
+
 class LocalExecutor:
     """Single-process execution over device-resident table pages (the
     reference's PlanTester.executeStatement analogue, testing/PlanTester.java
@@ -87,9 +100,10 @@ class LocalExecutor:
         self.device = resolve_device(device)
         self._table_cols: dict = {}
         self._table_pages: dict = {}
-        # caps that completed a query without overflow, keyed by plan: repeat
-        # executions skip the growth retries
-        self._learned_caps: dict[PlanNode, dict[int, int]] = {}
+        # (caps, joins sent to the sort path) that completed a query, keyed
+        # by plan: repeat executions skip the growth retries
+        self._learned_caps: dict[PlanNode, tuple[dict[int, int], frozenset]] = {}
+        self.last_retries: list[dict] = []
 
     # ------------------------------------------------------------- table IO
     def table_page(
@@ -138,16 +152,32 @@ class LocalExecutor:
                 inputs[str(i)] = self.table_page(
                     n.catalog, n.table, n.column_names, n.output_types, scan_id=i
                 )
-        caps = self._learned_caps.get(plan)
+        caps, sort_joins = self._learned_caps.get(plan, (None, frozenset()))
         if caps is None:
             caps = self._initial_caps(nodes, inputs)
         # capacity bucketing: every cap lands on a pow2 tier.  Also snapshots
         # the dict: the retry loop below mutates caps in place, and learned
         # dicts must not alias it.
         caps = {nid: _pow2(max(int(c), 1)) for nid, c in caps.items()}
+        # why each re-run of this call happened: {nid: required} of the
+        # nodes that overflowed, or {"sort_joins": ids} for failed hash joins
+        self.last_retries = []
         for _ in range(12):  # capacity-retry loop
-            out_page, required = _trace_plan(plan, inputs, caps)
+            out_page, required = _trace_plan(plan, inputs, caps, sort_joins)
             required = _fetch_required(required)  # ONE device->host transfer
+            for key, val in required.items():
+                if key < 0 and val > 1:
+                    raise RuntimeError("Scalar sub-query has returned multiple rows")
+            failed = {
+                key - _JOIN_GUARD for key, val in required.items()
+                if key >= _JOIN_GUARD and val
+            }
+            if failed:
+                # a hash join's table overflowed or a probe walk ran past
+                # its budget: its rows are unusable; run it sorted
+                sort_joins = sort_joins | failed
+                self.last_retries.append({"sort_joins": sorted(failed)})
+                continue
             overflow = {
                 nid: req
                 for nid, req in required.items()
@@ -166,8 +196,9 @@ class LocalExecutor:
                     tight = _pow2(req * 2 + 1024)
                     if tight < caps[nid]:
                         caps[nid] = tight
-                self._learned_caps[plan] = caps
+                self._learned_caps[plan] = (caps, sort_joins)
                 return out_page
+            self.last_retries.append(overflow)
             for nid, req in overflow.items():
                 caps[nid] = _pow2(max(req, caps[nid] * 2))
         raise RuntimeError(f"capacity retry loop did not converge: {caps}")
@@ -191,10 +222,27 @@ class LocalExecutor:
             child_sizes = [size_of(c, nodes[c]) for c in _child_ids(nodes, nid)]
             if not child_sizes:
                 return 1
-            if isinstance(n, Aggregate):
+            if isinstance(n, (Aggregate, Distinct)):
                 hint = est_groups(n)
                 cap = hint if hint is not None else 65536
                 caps[nid] = min(_pow2(max(cap, 1024)), _pow2(max(child_sizes[0], 1)))
+                return caps[nid]
+            if isinstance(n, Join):
+                if n.kind in ("semi", "anti", "null_anti", "mark", "mark_in"):
+                    caps[nid] = _pow2(max(max(child_sizes), 1))
+                    return child_sizes[0]
+                if n.kind == "cross":
+                    return child_sizes[0]
+                hard = _pow2(max(max(child_sizes), 1))
+                # stats-sized expansion frame: 2x the estimate, floored,
+                # capped by the worst case; the retry loop corrects
+                # underestimates
+                hint = est_groups(n)
+                caps[nid] = hard if hint is None else min(hard, _pow2(max(2 * hint, 4096)))
+                if n.kind == "left":
+                    return caps[nid] + child_sizes[0]
+                if n.kind == "full":
+                    return caps[nid] + child_sizes[0] + child_sizes[1]
                 return caps[nid]
             if isinstance(n, Compact):
                 # start as a pass-through (cap = input frame): whether this
@@ -202,6 +250,15 @@ class LocalExecutor:
                 # TRUE surviving count (the shrink in execute())
                 caps[nid] = _pow2(max(child_sizes[0], 1))
                 return caps[nid]
+            if isinstance(n, TopN):
+                # radix-select candidate buffer: room for K plus boundary
+                # ties (a 32-bit threshold over a float key can tie
+                # thousands of rows); the sort path never overflows it
+                caps[nid] = min(
+                    _pow2(max(2 * n.count + 512, 16384)),
+                    _pow2(max(child_sizes[0], 1)),
+                )
+                return min(n.count, child_sizes[0])
             return child_sizes[0]
 
         size_of(0, nodes[0])
@@ -275,10 +332,15 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
     return cols
 
 
-def _trace_plan(plan: PlanNode, pages: dict[str, Page], caps: dict[int, int]):
+def _trace_plan(
+    plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
+    sort_joins: frozenset = frozenset(),
+):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
-    to a device scalar holding the size that node truly needed."""
+    to a device scalar holding the size that node truly needed (plus the
+    EnforceSingleRow counts and join guards, see the module docstring).
+    Joins whose ids are in `sort_joins` take the sort path."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -411,6 +473,66 @@ def _trace_plan(plan: PlanNode, pages: dict[str, Page], caps: dict[int, int]):
                 cols.append(ColumnVal(data, valid, d, a.type, data2=hi))
             return _Stage(cols, out_live)
 
+        if isinstance(node, EnforceSingleRow):
+            s = emit(node.child)
+            # the host raises when this exceeds 1 (the scalar-subquery
+            # contract; reference: EnforceSingleRowOperator)
+            report(-(nid + 1), s.live.sum(dtype=torch.int64))
+            return s
+
+        if isinstance(node, Distinct):
+            s = emit(node.child)
+            out_keys, _, out_live, n_groups = group_aggregate(
+                s.cols, [], [], s.live, caps[nid]
+            )
+            report(nid, n_groups)
+            cols = [
+                ColumnVal(data, valid, cv.dict, cv.type, khi)
+                for (data, valid, khi), cv in zip(out_keys, s.cols)
+            ]
+            return _Stage(cols, out_live)
+
+        if isinstance(node, Join):
+            # decimal128 columns ride the join: the expansion gathers, the
+            # left/full null-extension concats and the exact key equality
+            # all carry the high limb (ops/relops.py equi_join)
+            left = emit(node.left)
+            right = emit(node.right)
+            if node.kind == "cross":
+                cols, live = broadcast_single_row(
+                    left.cols, left.live, right.cols, right.live
+                )
+                return _Stage(cols, live)
+            C = caps[nid]
+            lkeys = [eval_expr(k, left.cols, left.capacity, left.live.device)
+                     for k in node.left_keys]
+            rkeys = [eval_expr(k, right.cols, right.capacity, right.live.device)
+                     for k in node.right_keys]
+            lkeys, rkeys = _align_join_keys(lkeys, rkeys)
+            residual = None
+            if node.residual is not None:
+                res_ir = node.residual
+
+                def residual(gathered, cap, _ir=res_ir, _dev=left.live.device):
+                    return eval_predicate(_ir, gathered, cap, _dev)
+
+            cols, live, req, hash_failed = equi_join(
+                node.kind, left.cols, left.live, right.cols, right.live,
+                lkeys, rkeys, residual, C, force_sort=nid in sort_joins,
+            )
+            report(nid, req)
+            report(_JOIN_GUARD + nid, hash_failed)
+            return _Stage(cols, live)
+
+        if isinstance(node, TopN):
+            s = emit(node.child)  # limbed payloads ride the gathers
+            dev = s.live.device
+            keys = [eval_expr(k.expr, s.cols, s.capacity, dev) for k in node.keys]
+            specs = [SortSpec(k.ascending, k.nulls_first) for k in node.keys]
+            cols, live, req = top_n(s.cols, s.live, keys, specs, node.count, caps.get(nid))
+            report(nid, req)
+            return _Stage(cols, live)
+
         if isinstance(node, Sort):
             s = emit(node.child)  # limbed payloads ride sort_rows' gathers
             dev = s.live.device
@@ -426,7 +548,7 @@ def _trace_plan(plan: PlanNode, pages: dict[str, Page], caps: dict[int, int]):
         name = type(node).__name__
         raise NotImplementedError(
             f"plan node {name} is not ported to trino_tpu_torch yet "
-            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.6-A.11')})"
+            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.7-A.11')})"
         )
 
     events = _kernels.begin_capture()
@@ -443,3 +565,18 @@ def _trace_plan(plan: PlanNode, pages: dict[str, Page], caps: dict[int, int]):
         stage.live,
     )
     return out_page, required
+
+
+def _align_join_keys(lkeys: list[ColumnVal], rkeys: list[ColumnVal]):
+    """Translate dictionary codes so both sides of a varchar key share one
+    code space (host-side table, gathered on the device)."""
+    out_l, out_r = [], []
+    for a, b in zip(lkeys, rkeys):
+        if a.dict is not None and b.dict is not None and a.dict is not b.dict:
+            data = translate_codes(b, a.dict)
+            valid = b.valid if b.valid is not None else torch.ones_like(data, dtype=torch.bool)
+            # codes of -1 (absent from a's dictionary) must not match
+            b = ColumnVal(data, valid & (data >= 0), a.dict, b.type)
+        out_l.append(a)
+        out_r.append(b)
+    return out_l, out_r

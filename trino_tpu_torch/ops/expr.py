@@ -12,11 +12,12 @@ Value model: every IR expression evaluates to a ColumnVal
 NULL semantics are Kleene 3-valued logic for and/or, strict for everything
 else (reference: sql/ir + interpreter semantics).
 
-This slice carries the operators TPC-H Q1/Q6 reach: literals, field
-references, arithmetic and comparisons (single-lane and decimal128), casts
-between numeric types, Kleene and/or/not, is_null, date arithmetic and
-field extraction.  Every other operator raises NotImplementedError naming
-the ROADMAP item that ports it.
+The port carries the operators TPC-H Q1/Q3/Q6 reach: literals (string
+literals as one-entry dictionaries), field references, arithmetic and
+comparisons (single-lane and decimal128), string comparisons through host
+tables over the dictionaries, casts between numeric types, Kleene
+and/or/not, is_null, date arithmetic and field extraction.  Every other
+operator raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..plan.ir import Call, CaseWhen, Const, FieldRef, InListIr, IrExpr, LikeIr,
 
 __all__ = [
     "ColumnVal", "eval_expr", "eval_predicate", "column_val", "to_column",
+    "translate_codes",
 ]
 
 _NOT_PORTED = "not ported to trino_tpu_torch yet (ROADMAP A.8: remaining SQL surface)"
@@ -109,8 +111,15 @@ def eval_predicate(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) ->
 
 
 def _const_val(e: Const, n: int, dev: torch.device) -> ColumnVal:
-    if e.type.is_array or e.type.is_string:
+    if e.type.is_array:
         raise NotImplementedError(f"{e.type.name} literals are {_NOT_PORTED}")
+    if e.type.is_string:
+        # a one-entry dictionary: comparisons against it become a host table
+        # over the other side's dictionary (_string_compare); a typed NULL
+        # keeps the same shape with every lane invalid
+        d = Dictionary(np.asarray(["" if e.value is None else e.value], dtype=object))
+        valid = None if e.value is not None else torch.zeros((n,), dtype=torch.bool, device=dev)
+        return ColumnVal(torch.zeros((n,), dtype=torch.int32, device=dev), valid, d, e.type)
     if e.value is None:
         return ColumnVal(
             torch.zeros((n,), dtype=_torch_dtype(e.type), device=dev),
@@ -189,6 +198,8 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
 
     args = [eval_expr(a, cols, n, dev) for a in e.args]
     if any(v.dict is not None for v in args):
+        if op in _COMPARE:
+            return _string_compare(op, args)
         raise NotImplementedError(f"string {op} is {_NOT_PORTED}")
 
     valid = None
@@ -366,6 +377,61 @@ def _limbed_op(op: str, args, valid, e) -> ColumnVal:
         "gt": ~(lt | eq), "ge": ~lt,
     }[op]
     return ColumnVal(out, valid, None, BOOLEAN)
+
+
+# ---------------------------------------------------- dictionary (host) ops
+
+
+def _string_compare(op: str, args: list[ColumnVal]) -> ColumnVal:
+    """Comparisons over dictionary-coded strings: a host-built table over
+    the (small) dictionary, gathered on the device by code."""
+    a, b = args
+    if a.dict is None or b.dict is None:
+        raise NotImplementedError(f"string {op} against a non-string value is {_NOT_PORTED}")
+    valid = _and_valid(a.valid, b.valid)
+    if len(b.dict) == 1:
+        return _dict_vs_const(op, a, str(b.dict.values[0]), valid)
+    if len(a.dict) == 1:
+        flip = {"eq": "eq", "ne": "ne", "lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+        return _dict_vs_const(flip[op], b, str(a.dict.values[0]), valid)
+    if a.dict is b.dict:
+        if op in ("eq", "ne"):
+            return ColumnVal(_COMPARE[op](a.data, b.data), valid, None, BOOLEAN)
+        ranks = torch.from_numpy(a.dict.sorted_rank()).to(a.data.device)
+        ra = ranks.index_select(0, a.data.to(torch.int64))
+        rb = ranks.index_select(0, b.data.to(torch.int64))
+        return ColumnVal(_COMPARE[op](ra, rb), valid, None, BOOLEAN)
+    # different dictionaries: translate b's codes into a's code space (eq/ne)
+    if op in ("eq", "ne"):
+        b_in_a = translate_codes(b, a.dict)
+        eq = (b_in_a >= 0) & (a.data == b_in_a)
+        return ColumnVal(eq if op == "eq" else ~eq, valid, None, BOOLEAN)
+    raise NotImplementedError("ordering comparison across distinct dictionaries")
+
+
+def translate_codes(col: ColumnVal, to: Dictionary) -> torch.Tensor:
+    """`col`'s dictionary codes in `to`'s code space (-1 where `to` lacks
+    the value): a host-built table, gathered on the device by code."""
+    # an empty dictionary has only dead or NULL lanes: they map to -1
+    trans = np.asarray([to.code_of(v) for v in col.dict.values] or [-1], dtype=np.int32)
+    return torch.from_numpy(trans).to(col.data.device).index_select(
+        0, col.data.to(torch.int64).clamp(0, len(trans) - 1)
+    )
+
+
+def _dict_vs_const(op: str, col: ColumnVal, const: str, valid) -> ColumnVal:
+    import operator as _op
+
+    py = {
+        "eq": _op.eq, "ne": _op.ne, "lt": _op.lt, "le": _op.le, "gt": _op.gt, "ge": _op.ge,
+    }[op]
+    table = np.asarray([py(str(v), const) for v in col.dict.values], dtype=np.bool_)
+    if len(table) == 0:  # an empty dictionary: every lane is dead or NULL
+        table = np.zeros((1,), dtype=np.bool_)
+    data = torch.from_numpy(table).to(col.data.device).index_select(
+        0, col.data.to(torch.int64).clamp(0, len(table) - 1)
+    )
+    return ColumnVal(data, valid, None, BOOLEAN)
 
 
 # ------------------------------------------------------------- date helpers

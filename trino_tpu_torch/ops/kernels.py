@@ -1,25 +1,34 @@
 """Data-plane kernel policy and dispatch accounting.
 
-The CUDA data-plane kernels (ops/cuda/segreduce.py, ops/cuda/fused.py)
-replace operator-at-a-time hot paths (ops/relops.py) when a static gate says
-the shape fits.  This module is the one place that decision is configured
+The CUDA data-plane kernels (ops/cuda/segreduce.py, ops/cuda/fused.py,
+ops/cuda/hashagg.py, ops/cuda/hashjoin.py, ops/cuda/topk.py) replace
+operator-at-a-time hot paths (ops/relops.py) when a static gate says the
+shape fits.  This module is the one place that decision is configured
 and observed:
 
   * KernelPolicy — per-statement knobs (runtime/session.py properties
     `data_plane_kernels`, `hash_agg_kernel_limit`, `hash_join_kernel_limit`),
     re-applied by the engine before each statement.
   * record_dispatch() — increments
-    trino_tpu_torch_kernel_dispatch_total{op,impl=cuda|torch|sort} and,
+    trino_tpu_torch_kernel_dispatch_total{op,impl} and,
     while a plan trace is active, appends the event to that trace's capture.
     The port runs eagerly, so every execution of a plan records its
     dispatches.
   * events_for(plan) — the captured events of the last trace of `plan`
     (plans are frozen dataclasses, so they key a bounded dict directly).
 
+op values: segment_reduce | fused_pipeline | group_by | join | topn.
+
 impl values: "cuda" = the hand-written CUDA kernel was launched; "torch" =
 the kernel's plain PyTorch version ran, which happens only for tensors that
-live on the CPU; "sort" = a static gate chose a sort-based path (reserved
-for the hash group-by and join gates, which are not ported yet).
+live on the CPU; "sort" = a static gate chose the sort-based path (kernels
+off, keys the hash table cannot carry, a TopN too small or too long for
+radix select); "fallback" = the hash table's capacity tier is past the
+session limit (hash_agg_kernel_limit / hash_join_kernel_limit), so the
+sort path runs.
+
+The hash limits default to the card's, not the reference's VMEM table
+(2048): 2^24 keys is a 2^25-slot table, under 1 GiB for 6-word keys.
 """
 
 from __future__ import annotations
@@ -30,17 +39,20 @@ from dataclasses import dataclass
 from ..utils import metrics as _metrics
 
 __all__ = [
-    "KernelPolicy", "get_policy", "set_policy", "impl_for",
+    "HASH_KERNEL_LIMIT", "KernelPolicy", "get_policy", "set_policy", "impl_for",
     "record_dispatch", "begin_capture", "end_capture", "remember",
     "events_for",
 ]
 
 
+HASH_KERNEL_LIMIT = 1 << 24
+
+
 @dataclass(frozen=True)
 class KernelPolicy:
-    enabled: bool = True            # master kill switch (data_plane_kernels)
-    hash_agg_max_groups: int = 2048  # group cap above which group-by sorts
-    hash_join_max_build: int = 2048  # build rows above which joins sort
+    enabled: bool = True  # master kill switch (data_plane_kernels)
+    hash_agg_max_groups: int = HASH_KERNEL_LIMIT  # group cap above which group-by sorts
+    hash_join_max_build: int = HASH_KERNEL_LIMIT  # build rows above which joins sort
 
 
 _DEFAULT = KernelPolicy()
@@ -49,9 +61,10 @@ _POLICY = _DEFAULT
 _DISPATCH = _metrics.GLOBAL.counter(
     "trino_tpu_torch_kernel_dispatch_total",
     "Data-plane kernel selections at plan-trace time, by relational op "
-    "(segment_reduce | fused_pipeline) and implementation (cuda = CUDA "
-    "kernel launched, torch = plain PyTorch version on CPU tensors, sort = "
-    "sort-based path)",
+    "(segment_reduce | fused_pipeline | group_by | join | topn) and "
+    "implementation (cuda = CUDA kernel launched, torch = plain PyTorch "
+    "version on CPU tensors, sort = sort-based path, fallback = sort path "
+    "because the hash capacity is past the session limit)",
     ("op", "impl"),
 )
 

@@ -279,18 +279,18 @@ PROPERTIES: dict[str, _Prop] = {
             "data_plane_kernels", bool, True,
             "master switch for the fused data-plane pipelines (the "
             "scan->filter->project->aggregate kernel, ops/cuda/fused.py; "
-            "later the hash group-by and hash join). false runs the "
-            "operator-at-a-time paths",
+            "the hash group-by and hash join, ops/cuda/hashagg.py and "
+            "hashjoin.py). false runs the operator-at-a-time and sort paths",
             None,
         ),
         _Prop(
-            "hash_agg_kernel_limit", int, 2048,
+            "hash_agg_kernel_limit", int, 1 << 24,
             "group-count capacity above which group-by takes the sort "
             "path instead of the hash-table kernel",
             lambda v: v >= 1,
         ),
         _Prop(
-            "hash_join_kernel_limit", int, 2048,
+            "hash_join_kernel_limit", int, 1 << 24,
             "build-side rows above which equi-joins take the sort path "
             "instead of the hash-table kernel",
             lambda v: v >= 1,
