@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card and nvcc
+    python3 chip_smoke.py            # needs one CUDA card, nvcc and NVRTC
 
-It builds the port's CUDA kernels from trino_tpu_torch/csrc/, holds each of
-the five against its plain PyTorch version on the card (edge cases, then
-timed inputs at the main path's largest shapes: a 64 Mi-row TPC-H
-Q1-shaped column set, an 8 Mi-row hash build and probe, four radix passes
-over 64 Mi keys), and drives the port's main path — `Engine.query` on TPC-H
-scale factor 1: Q1, Q6 and a min/max group-by through the segmented reduce
-and the fused pipeline, Q3 through the hash build and probe (and through
-the sort paths with kernels off), and the ten most expensive line items
-through radix select — checking every result against an independent numpy
-reference and against the same query on `Engine(device="cpu")`.  Each phase prints one JSON line; the last line of
-standard output is `{"ok": true, "device": {...}}`.  Any failed build,
-launch or comparison ends the run with a non-zero exit code.  Without a CUDA
-device it prints a message on stderr and exits 2.
+It builds the port's static CUDA kernels from trino_tpu_torch/csrc/ with
+nvcc, generates and compiles (NVRTC) the fused-pipeline kernel of each recipe
+it meets, holds each of the five kernels against its plain PyTorch version
+on the card (edge cases, warp-level cases, then timed inputs at the main
+path's largest shapes: a 64 Mi-row TPC-H lineitem column set through the
+fused recipes of Q1 and Q6 and through 6- and 20-reduction GROUP BYs, an
+8 Mi-row hash build and probe, four radix passes over 64 Mi keys), and
+drives the port's main path — `Engine.query` on TPC-H scale factor 1: Q1,
+Q6 and a min/max group-by through the segmented reduce and the fused
+pipeline, Q3 through the hash build and probe (and through the sort paths
+with kernels off), and the ten most expensive line items through radix
+select — checking every result against an independent numpy reference and
+against the same query on `Engine(device="cpu")`.  Each phase prints one
+JSON line; the last line of standard output is `{"ok": true, "device":
+{...}}`.  Any failed build, launch or comparison ends the run with a
+non-zero exit code.  Without a CUDA device it prints a message on stderr and
+exits 2.
 
 Options: `--scale F` (TPC-H scale factor of the main path, default 1.0),
 `--rows N` (rows of the timed kernel inputs, default 64 Mi; the hash build
@@ -32,6 +36,7 @@ import subprocess
 import sys
 import time
 from decimal import Decimal
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -149,8 +154,8 @@ def compare_outputs(got, want, scales, what: str, n: int) -> float:
         if g.dtype != w.dtype or g.shape != w.shape:
             fail(f"{what}[{i}]: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
         if g.dtype.is_floating_point:
-            both_inf = torch.isinf(g) & torch.isinf(w) & (g == w)
-            err = torch.where(both_inf, torch.zeros_like(g), (g - w).abs())
+            same = (torch.isinf(g) & torch.isinf(w) & (g == w)) | (torch.isnan(g) & torch.isnan(w))
+            err = torch.where(same, torch.zeros_like(g), (g - w).abs())
             tol = sum_tolerance(n) * scales[i] + 1e-300
             if not bool((err <= tol).all()):
                 fail(f"{what}[{i}]: max err {float(err.max())} > {tol}")
@@ -162,19 +167,29 @@ def compare_outputs(got, want, scales, what: str, n: int) -> float:
     return worst
 
 
-def segreduce_case(seg, reds, G, what: str, got=None) -> float:
+def segreduce_case(seg, reds, G, what: str, got=None, plain_on_cpu=False) -> float:
     """Kernel 1 against its plain version on the same inputs (`got`: the
-    kernel's result when the caller already has it)."""
+    kernel's result when the caller already has it).  `plain_on_cpu` runs
+    the plain version on CPU copies: torch's CUDA scatter_reduce lets a
+    later non-NaN overwrite a NaN, its CPU version (like the kernel) keeps
+    the NaN."""
     from trino_tpu_torch.ops.cuda import segreduce as sr
 
     if got is None:
         got = sr.fused_segment_reduce(seg, reds, G)
     torch.cuda.synchronize()
-    want = sr.plain_segment_reduce(seg, reds, G)
+    if plain_on_cpu:
+        cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+        want = sr.plain_segment_reduce(
+            seg.cpu(), [sr.SegRed(r.op, cpu(r.values), cpu(r.valid)) for r in reds], G)
+        got = [g.cpu() for g in got]
+    else:
+        want = sr.plain_segment_reduce(seg, reds, G)
     scales = []
     for r in reds:
         if r.values is not None and r.values.dtype.is_floating_point and r.op == "sum":
-            scales.append(float(r.values.abs().sum()) if r.values.numel() else 0.0)
+            finite = torch.nan_to_num(r.values.abs(), nan=0.0, posinf=0.0)  # NaN/inf: same slot
+            scales.append(float(finite.sum()) if r.values.numel() else 0.0)
         else:
             scales.append(0.0)
     return compare_outputs(got, want, scales, f"segment_reduce {what}", seg.shape[0])
@@ -221,6 +236,28 @@ def segreduce_edges(dev) -> float:
     many = [SegRed("sum", t(rng.integers(-99, 99, size=n).astype(np.int64)), None)
             for _ in range(40)]
     worst = max(worst, segreduce_case(seg, many, G, "40 reductions"))
+
+    # warp-level cases of the shared route, and the global route at q03's size
+    n = 1_000_003
+    vi = np.full(n, 2**32 - 1, np.int64)  # every limb sum carries past 2^32
+    vi[::7] = -(2**62) - 12345
+    vf = rng.normal(0, 1e3, size=n)
+    vf[[3, 70_001]] = np.nan
+    vf[[5, 9]] = (np.inf, -np.inf)
+    valid = rng.random(n) < 0.8
+    reds = [
+        SegRed("count", None, None), SegRed("count", None, t(valid)),
+        SegRed("sum", t(vi), t(valid)), SegRed("sum", t(vi.astype(np.int32)), None),
+        SegRed("sum", t(vf), None), SegRed("min", t(vf), None), SegRed("max", t(vf), t(valid)),
+        SegRed("min", t(vi), t(valid)), SegRed("max", t(vi), None),
+    ]
+    for G, seg, what in (
+        (1, np.zeros(n, np.int32), "G=1"),
+        (6, np.full(n, 3, np.int32), "G=6, every lane in one group"),
+        (6, rng.integers(0, 6, size=n).astype(np.int32), "G=6, NaN and +-inf"),
+        (1 << 20, rng.integers(0, 1 << 20, size=n).astype(np.int32), "G=2^20 global route"),
+    ):
+        worst = max(worst, segreduce_case(t(seg), reds, G, what, plain_on_cpu=True))
     return worst
 
 
@@ -326,6 +363,68 @@ def fused_edges(dev) -> float:
             fail(f"fused edge recipe declined: {why}")
         live = None if n % 2 else t(rng.random(n) < 0.95)
         worst = max(worst, fused_case(recipe, cols, live, f"n={n} D={recipe.domain}"))
+    return worst
+
+
+def fused_warp_edges(dev) -> float:
+    """Kernel 2's warp-level cases: all-dead warps, a single live lane, all
+    32 lanes of a warp in one group, 32 distinct codes in a warp, D = 512
+    (the global route) and 128-bit carries inside one warp."""
+    from trino_tpu_torch.data.page import Dictionary
+    from trino_tpu_torch.data.types import BIGINT, BOOLEAN, DOUBLE, DecimalType
+    from trino_tpu_torch.ops.cuda import fused
+    from trino_tpu_torch.ops.expr import ColumnVal
+    from trino_tpu_torch.plan.ir import Call, Const, FieldRef
+
+    rng = np.random.default_rng(13)
+    n = 8192
+    d18, d38_2, d38_4 = DecimalType(18, 2), DecimalType(38, 2), DecimalType(38, 4)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(values, codes, domains, live, what, bounds=()):
+        cols = [ColumnVal(t(values), None, None, d18)]
+        for c, k in zip(codes, domains):
+            cols.append(ColumnVal(t(c.astype(np.int32)), None,
+                                  Dictionary(np.asarray([f"v{i:04d}" for i in range(k)], dtype=object)),
+                                  None))
+        A = FieldRef(0, d18)
+        keys = [FieldRef(i + 1, None) for i in range(len(codes))]
+        # filters on the cast to double at a literal that only a correctly
+        # rounded x / 100 meets exactly
+        as_f = Call("cast", (A,), DOUBLE)
+        filters = [Call(op, (as_f, Const(c, DOUBLE)), BOOLEAN) for op, c in bounds]
+        recipe, why = fused.plan_pipeline(
+            cols, filters, keys, ["sum", "sum", "count_star", "sum"],
+            [A, Call("mul", (A, A), d38_4), None, Call("cast", (A,), DOUBLE)],
+            [d38_2, d38_4, BIGINT, DOUBLE])
+        if recipe is None:
+            fail(f"fused warp edge {what}: recipe declined: {why}")
+        return fused_case(recipe, cols, None if live is None else t(live), what)
+
+    big = np.full(n, 2**63 - 1, np.int64)
+    big[1::2] = -(2**63)  # 128-bit sums and products that carry inside a warp
+    vals = rng.integers(-10**15, 10**15, size=n).astype(np.int64)
+    code6 = rng.integers(0, 6, size=n)
+    worst = 0.0
+    dead_warps = (np.arange(n) // 32) % 3 == 0
+    one_lane = np.zeros(n, np.bool_)
+    one_lane[37] = True
+    for values, codes, domains, live, what in (
+        (vals, [code6], [6], dead_warps, "two of three warps dead"),
+        (vals, [code6], [6], one_lane, "a single live lane"),
+        (vals, [np.zeros(n)], [6], None, "32 lanes in one group"),
+        (vals, [], [], None, "D = 1"),
+        (vals, [np.arange(n) % 32], [32], None, "32 distinct codes in a warp"),
+        (vals, [np.arange(n) % 32, (np.arange(n) // 32) % 16], [32, 16], None, "D = 512"),
+        (big, [np.zeros(n)], [6], None, "128-bit carries in one warp"),
+        (big, [], [], None, "128-bit carries, D = 1"),
+    ):
+        worst = max(worst, case(values, codes, domains, live, what))
+    cents = np.arange(-n // 2, n // 2, dtype=np.int64)
+    worst = max(worst, case(cents, [code6], [6], None, "casts at a literal's rounding",
+                            bounds=(("le", 0.07), ("ge", -12.34))))
     return worst
 
 
@@ -476,7 +575,7 @@ def hash_timed(dev, n: int) -> list:
     hit_share = probe_case(pwords, live, table, f"timed n={n}")
     if abs(hit_share - 0.5) > max(0.01, 3.0 / n ** 0.5):
         fail(f"hash_probe timed: hit share {hit_share}, expected ~0.5")
-    p_ms = time_ms(lambda: hashjoin.probe_hash_table(pwords, live, table), 2, 10)
+    p_ms = time_ms(lambda: hashjoin.probe_hash_table(pwords, live, table), 2, 20)
     p_plain = time_ms(lambda: hashjoin.plain_probe_hash_table(pwords, live, table), 1, 3)
 
     def packed(ws):
@@ -484,7 +583,7 @@ def hash_timed(dev, n: int) -> list:
 
     sorted_build = torch.unique(packed(words))  # sorted
     probe_keys = packed(pwords)
-    p_lib = time_ms(lambda: torch.searchsorted(sorted_build, probe_keys), 2, 10)
+    p_lib = time_ms(lambda: torch.searchsorted(sorted_build, probe_keys), 2, 20)
 
     def bound(ws, lv):
         # stream: the words and the live byte in, the id out; past L2, one
@@ -591,105 +690,72 @@ def radix_timed(dev, n: int) -> dict:
             "rows": n, "passes": len(passes)}
 
 
-# ----------------------------------------------- timed Q1-shaped 64 M rows
-
-
-def q1_shaped_inputs(engine, n, dev):
-    """Q1's seven scan columns at n rows, made on the device from a seed,
-    plus the recipe of Q1's fused fragment over them."""
-    from trino_tpu_torch.data.page import Dictionary
-    from trino_tpu_torch.exec.compiler import fused_fragment
-    from trino_tpu_torch.ops.cuda import fused
-    from trino_tpu_torch.ops.expr import ColumnVal
-    from trino_tpu_torch.plan.nodes import Aggregate, walk
-
-    plan = engine.plan(Q01)
-    agg = next(nd for nd in walk(plan) if isinstance(nd, Aggregate))
-    scan, filters, keys, args, _ = fused_fragment(agg)
-    g = torch.Generator(device=dev)
-    g.manual_seed(20240601)
-
-    def ints(lo, hi, dtype):
-        return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=dtype)
-
-    by_name = {
-        "l_quantity": ints(100, 5001, torch.int64),
-        "l_extendedprice": ints(90000, 10500000, torch.int64),
-        "l_discount": ints(0, 11, torch.int64),
-        "l_tax": ints(0, 9, torch.int64),
-        "l_returnflag": ints(0, 3, torch.int32),
-        "l_linestatus": ints(0, 2, torch.int32),
-        "l_shipdate": ints(8036, 10562, torch.int32),
-    }
-    dicts = {
-        "l_returnflag": Dictionary(np.asarray(["A", "N", "R"], dtype=object)),
-        "l_linestatus": Dictionary(np.asarray(["F", "O"], dtype=object)),
-    }
-    cols = [
-        ColumnVal(by_name[name], None, dicts.get(name), ty)
-        for name, ty in zip(scan.column_names, scan.output_types)
-    ]
-    recipe, why = fused.plan_pipeline(
-        cols, filters, keys, [a.fn for a in agg.aggs], args, [a.type for a in agg.aggs]
-    )
-    if recipe is None:
-        fail(f"Q1 fragment declined by plan_pipeline: {why}")
-    return recipe, cols, by_name
+# --------------------------------------- timed shapes of kernels 1 and 2
 
 
 def kernels_phase(engine, dev, n_rows):
-    from trino_tpu_torch.ops.cuda import fused
+    from trino_tpu_torch.ops.cuda import fused, fused_codegen
     from trino_tpu_torch.ops.cuda import segreduce as sr
+    from trino_tpu_torch.tools import time_kernels as tk
 
     err1 = segreduce_edges(dev)
-    err2 = fused_edges(dev)
-
-    recipe, cols, by_name = q1_shaped_inputs(engine, n_rows, dev)
+    err2 = max(fused_edges(dev), fused_warp_edges(dev))
     n = n_rows
+    by_name = tk.lineitem_columns(n, dev)
 
-    # ---- kernel 2 at Q1's shape
-    err2 = max(err2, fused_case(recipe, cols, None, f"Q1 shape n={n}"))
-    k2_ms = time_ms(lambda: fused.run(recipe, cols, None), 2, 10)
-    k2_plain = time_ms(lambda: fused.run_plain(recipe, cols, None), 1, 3)
-    k2_in = distinct_bytes([cols[c].data if w == "data" else cols[c].valid
-                            for w, c, _ in recipe.table])
-    k2_out = len(recipe.streams) * 2 * recipe.domain * 8
-    k2_bytes_ms = (k2_in + k2_out) / HBM_BYTES_PER_S * 1e3
-    k2_ops = n * len(recipe.program)  # one 64-bit-class operation per instruction and row
-    k2_ops_ms = k2_ops / FP64_OPS_PER_S * 1e3
+    # ---- kernel 2 at Q1's and Q6's recipes: the first call compiles the
+    # recipe's kernel (the cache was cleared at start-up)
+    k2 = {}
+    for qname, sql in (("q1", tk.Q01), ("q6", tk.Q06)):
+        recipe, cols = tk.fused_inputs(engine, sql, by_name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fused.run(recipe, cols, None)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        info = fused_codegen.compile_info(recipe)
+        if info.get("from") != "nvrtc":
+            fail(f"kernel 2 {qname}: the first call did not compile its kernel ({info})")
+        err2 = max(err2, fused_case(recipe, cols, None, f"{qname} shape n={n}", got=got))
+        in_bytes = tk.fused_bytes(recipe, cols)
+        k2[qname] = {
+            "ms": time_ms(lambda: fused.run(recipe, cols, None), 2, 20),
+            "plain": time_ms(lambda: fused.run_plain(recipe, cols, None), 1, 3),
+            "bytes": in_bytes, "bytes_ms": in_bytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": n * len(recipe.program) / FP64_OPS_PER_S * 1e3,
+            "compile_ms": info["compile_ms"], "first_call_ms": first_ms,
+            "instructions": len(recipe.program), "streams": len(recipe.streams),
+            "D": recipe.domain, "accumulation": fused_codegen.route_for(recipe)[0],
+            "rows_per_thread": fused_codegen.generate(recipe).rows_per_thread,
+            "ptxas": [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln],
+        }
+        del got
 
-    # ---- kernel 1: the reductions of a dictionary-key GROUP BY at the same
-    # rows (6 groups): counts, int64 sums, a double sum, min/max
-    seg = (by_name["l_returnflag"] * 2 + by_name["l_linestatus"]).to(torch.int32)
-    live = by_name["l_shipdate"] <= 10471
-    price_f = by_name["l_extendedprice"].to(torch.float64) / 100.0
-    reds = [
-        sr.SegRed("count", None, live),
-        sr.SegRed("sum", by_name["l_quantity"], live),
-        sr.SegRed("sum", by_name["l_extendedprice"], live),
-        sr.SegRed("sum", price_f, live),
-        sr.SegRed("min", by_name["l_shipdate"], live),
-        sr.SegRed("max", by_name["l_extendedprice"], live),
-    ]
-    err1 = max(err1, segreduce_case(seg, reds, 6, f"Q1 shape n={n}"))
-    k1_ms = time_ms(lambda: sr.fused_segment_reduce(seg, reds, 6), 2, 10)
-    k1_plain = time_ms(lambda: sr.plain_segment_reduce(seg, reds, 6), 1, 3)
-    seg64 = seg.to(torch.int64)
+    # ---- kernel 1: the 6-reduction GROUP BY and q01's 20-reduction call
+    k1 = {}
+    for name, (seg, reds, G) in tk.segreduce_shapes(by_name).items():
+        err1 = max(err1, segreduce_case(seg, reds, G, f"{name} n={n}"))
+        in_bytes = tk.segreduce_bytes(seg, reds, G)
+        k1[name] = {
+            "ms": time_ms(lambda: sr.fused_segment_reduce(seg, reds, G), 2, 20),
+            "plain": time_ms(lambda: sr.plain_segment_reduce(seg, reds, G), 1, 3),
+            "bytes": in_bytes, "bytes_ms": in_bytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": n * len(reds) / FP64_OPS_PER_S * 1e3, "reductions": len(reds),
+        }
+    seg64 = (by_name["l_returnflag"] * 2 + by_name["l_linestatus"]).to(torch.int64)
     acc = torch.zeros((7,), dtype=torch.int64, device=dev)
     qty = by_name["l_quantity"]
-    k1_lib = time_ms(lambda: acc.zero_().index_add_(0, seg64, qty), 2, 10)
-    k1_in = distinct_bytes([seg] + [r.values for r in reds] + [r.valid for r in reds])
-    k1_out = len(reds) * 6 * 8
-    k1_bytes_ms = (k1_in + k1_out) / HBM_BYTES_PER_S * 1e3
-    k1_ops_ms = n * len(reds) / FP64_OPS_PER_S * 1e3
+    k1_lib = time_ms(lambda: acc.zero_().index_add_(0, seg64, qty), 2, 20)
+    del by_name, seg64
+
     def row(name, source, replaces, err, ms, plain, b_ms, o_ms, lib, in_bytes, rows=n, **extra):
         return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **extra, "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err,
             "max_err_over_sum_abs": REL_ERR[name], "ms": ms, "kernel_ms": ms,
             "plain_ms": plain, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": lib, "rows": rows, "input_bytes": in_bytes, **extra,
+            "library_ms": lib, "rows": rows, "input_bytes": in_bytes,
         }
 
     # ---- kernels 3-5: edge cases, then Q3's largest shapes (integer
@@ -698,15 +764,27 @@ def kernels_phase(engine, dev, n_rows):
     radix_edges(dev)
     build, probe = hash_timed(dev, n_rows // 8)
     radix = radix_timed(dev, n_rows)
+    six, twenty = k1["segment_reduce_6"], k1["segment_reduce_20"]
+    q1, q6 = k2["q1"], k2["q6"]
     # the hash kernels do a few integer operations per slot visited and the
     # histogram a few per row: far under the card's rate, so bytes bound them
     return [
         row("segment_reduce", "trino_tpu_torch/csrc/segreduce.cu",
-            "trino_tpu/ops/pallas/segreduce.py:107", err1, k1_ms, k1_plain,
-            k1_bytes_ms, k1_ops_ms, k1_lib, k1_in),
-        row("fused_pipeline", "trino_tpu_torch/csrc/fused_pipeline.cu",
-            "trino_tpu/ops/pallas/fused.py:572", err2, k2_ms, k2_plain,
-            k2_bytes_ms, k2_ops_ms, None, k2_in),
+            "trino_tpu/ops/pallas/segreduce.py:107", err1, six["ms"], six["plain"],
+            six["bytes_ms"], six["ops_ms"], k1_lib, six["bytes"], reductions=6,
+            twenty_reductions={"ms": twenty["ms"], "plain_ms": twenty["plain"],
+                               "bound_ms": max(twenty["bytes_ms"], twenty["ops_ms"]),
+                               "input_bytes": twenty["bytes"]}),
+        row("fused_pipeline", "trino_tpu_torch/csrc/fused_pipeline.cuh",
+            "trino_tpu/ops/pallas/fused.py:572", err2, q1["ms"], q1["plain"],
+            q1["bytes_ms"], q1["ops_ms"], None, q1["bytes"],
+            generator="trino_tpu_torch/ops/cuda/fused_codegen.py",
+            **{k: q1[k] for k in ("compile_ms", "first_call_ms", "instructions", "streams",
+                                  "D", "accumulation", "rows_per_thread", "ptxas")},
+            q6={"ms": q6["ms"], "plain_ms": q6["plain"],
+                "bound_ms": max(q6["bytes_ms"], q6["ops_ms"]), "input_bytes": q6["bytes"],
+                **{k: q6[k] for k in ("compile_ms", "first_call_ms", "instructions", "streams",
+                                      "D", "accumulation", "ptxas")}}),
         row("hash_build", "trino_tpu_torch/csrc/hashagg.cu",
             "trino_tpu/ops/pallas/hashagg.py:167", 0.0, build["ms"], build["plain"],
             build["bound"], 0.0, build["lib"], build["bytes"], rows=build["rows"],
@@ -714,7 +792,7 @@ def kernels_phase(engine, dev, n_rows):
         row("hash_probe", "trino_tpu_torch/csrc/hashjoin.cu",
             "trino_tpu/ops/pallas/hashjoin.py:48", 0.0, probe["ms"], probe["plain"],
             probe["bound"], 0.0, probe["lib"], probe["bytes"], rows=probe["rows"],
-            table_slots=probe["table_slots"]),
+            table_slots=probe["table_slots"], iterations=20),
         row("radix_histogram", "trino_tpu_torch/csrc/topk.cu",
             "trino_tpu/ops/pallas/topk.py:80", 0.0, radix["ms"], radix["plain"],
             radix["bound"], 0.0, radix["lib"], radix["bytes"], rows=radix["rows"],
@@ -823,6 +901,17 @@ def check_main_path_calls(engine, lines) -> list:
     launches come after the main path's counts were read.)"""
     from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
     from trino_tpu_torch.ops.cuda import segreduce as sr
+    from trino_tpu_torch.tools import time_kernels as tk
+
+    def bound_ms(n_bytes: int) -> float:
+        return n_bytes / HBM_BYTES_PER_S * 1e3
+
+    def hash_bytes(words, live, table_slots: int) -> int:
+        # words and live bytes in, one id out, and one 32-byte sector per
+        # distinct start slot the live rows touch
+        n = live.shape[0]
+        touched = torch.unique(hashagg.hash_words(words, live)[live] & (table_slots - 1)).numel()
+        return n * (4 * len(words) + 1) + 4 * n + SECTOR * touched
 
     real = {
         "reduce": sr.fused_segment_reduce, "run": fused.run,
@@ -838,6 +927,7 @@ def check_main_path_calls(engine, lines) -> list:
         calls.append({
             "kernel": "segment_reduce", "statement": current[0], "rows": int(seg.shape[0]),
             "groups": int(G), "reductions": len(reds), "max_abs_err": err,
+            "bound_ms": bound_ms(tk.segreduce_bytes(seg, reds, G)),
             "ms": time_ms(lambda: real["reduce"](seg, reds, G, **kw), 1, 5),
             "plain_ms": time_ms(lambda: sr.plain_segment_reduce(seg, reds, G), 1, 3),
         })
@@ -851,6 +941,8 @@ def check_main_path_calls(engine, lines) -> list:
             "rows": int(cols[recipe.table[0][1]].data.shape[0]),
             "groups": int(recipe.domain), "instructions": len(recipe.program),
             "streams": len(recipe.streams), "max_abs_err": err,
+            "bound_ms": bound_ms(tk.fused_bytes(recipe, cols)
+                                 + (0 if live is None else live.numel())),
             "ms": time_ms(lambda: real["run"](recipe, cols, live), 1, 5),
             "plain_ms": time_ms(lambda: fused.run_plain(recipe, cols, live), 1, 3),
         })
@@ -864,6 +956,7 @@ def check_main_path_calls(engine, lines) -> list:
             "kernel": "hash_build", "statement": current[0], "rows": int(live.shape[0]),
             "live_rows": int(live.sum()), "words": len(words), "cap": int(cap),
             "table_slots": got[1].size, "groups": int(got[2]), "max_abs_err": 0.0,
+            "bound_ms": bound_ms(hash_bytes(words, live, got[1].size)),
             "ms": time_ms(lambda: real["build"](words, live, cap, **kw), 1, 5),
             "plain_ms": time_ms(lambda: hashagg.plain_build_hash_table(words, live, cap, **kw), 1, 3),
         })
@@ -876,6 +969,7 @@ def check_main_path_calls(engine, lines) -> list:
             "kernel": "hash_probe", "statement": current[0], "rows": int(live.shape[0]),
             "live_rows": int(live.sum()), "words": len(words), "table_slots": table.size,
             "hit_share": hits, "max_abs_err": 0.0,
+            "bound_ms": bound_ms(hash_bytes(words, live, table.size)),
             "ms": time_ms(lambda: real["probe"](words, live, table), 1, 5),
             "plain_ms": time_ms(lambda: hashjoin.plain_probe_hash_table(words, live, table), 1, 3),
         })
@@ -887,6 +981,7 @@ def check_main_path_calls(engine, lines) -> list:
         calls.append({
             "kernel": "radix_histogram", "statement": current[0], "rows": int(u.shape[0]),
             "shift": shift, "counted": int(got.sum()), "max_abs_err": 0.0,
+            "bound_ms": bound_ms(u.numel() * 5 + 256 * 8),
             "ms": time_ms(lambda: real["hist"](u, live, prefix, shift), 1, 5),
             "plain_ms": time_ms(lambda: topk.plain_radix_histogram(u, live, prefix, shift), 1, 3),
         })
@@ -1069,6 +1164,41 @@ def main_path_phase(engine, cpu_engine, scale):
     return main_counts
 
 
+def sass_report() -> dict:
+    """Atomic and local-memory instructions in the SASS of kernel 1 (both
+    routes) and of every generated kernel 2 of this run, from cuobjdump."""
+    import re
+    import shutil
+
+    from trino_tpu_torch.ops.cuda import build, fused_codegen
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"cuobjdump": None}
+    op = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG|LDL|STL)(?:\.[A-Z0-9_]+)*)")
+
+    def count(path, want) -> dict:
+        text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              timeout=300).stdout
+        out = {}
+        for block in text.split("Function : ")[1:]:
+            name = block.split(None, 1)[0]
+            label = want(name)
+            if label is None:
+                continue
+            ops = {}
+            for m in op.finditer(block):
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+            out[label] = ops
+        return out
+
+    rep = count(build.LIB_PATH, lambda nm: None if "segreduce_kernel" not in nm
+                else ("segment_reduce/shared" if "ILb1E" in nm else "segment_reduce/global"))
+    for cubin in sorted(fused_codegen.CACHE_DIR.glob("*.cubin")):
+        rep.update(count(cubin, lambda nm: f"fused_pipeline/{nm}"))
+    return rep
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0)
@@ -1082,7 +1212,7 @@ def main(argv=None) -> int:
         return 2
 
     from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops.cuda import build
+    from trino_tpu_torch.ops.cuda import build, fused_codegen, nvrtc
     from trino_tpu_torch.runtime.engine import Engine
 
     dev = torch.device("cuda")
@@ -1099,8 +1229,11 @@ def main(argv=None) -> int:
     info = build.last_build()
     if args.ptxas:
         print(info.get("log", ""), file=sys.stderr)
+    fused_codegen.clear_cache()  # kernel 2's first compile below is a cold one
     emit({"phase": "build", "seconds": round(info["seconds"], 3), "cached": info["cached"],
-          "library": "trino_tpu_torch/build/libtrino_kernels.so"})
+          "library": "trino_tpu_torch/build/libtrino_kernels.so",
+          "kernel_2": f"generated per recipe, NVRTC {nvrtc.nvrtc_version()}, cached in "
+                      "trino_tpu_torch/build/nvrtc/"})
 
     engine = Engine(device="cuda")
     engine.register_catalog("tpch", TpchConnector(args.scale))
@@ -1108,6 +1241,8 @@ def main(argv=None) -> int:
     cpu_engine.register_catalog("tpch", TpchConnector(args.scale))
 
     rows = kernels_phase(engine, dev, args.rows)
+    for r in rows:
+        r["card"] = smi_line
     torch.cuda.empty_cache()
     counts = main_path_phase(engine, cpu_engine, args.scale)
     for r in rows:
@@ -1115,6 +1250,7 @@ def main(argv=None) -> int:
         if r["launches"] < 1:
             fail(f"kernel {r['name']} was never launched on the main path")
 
+    emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -181,3 +181,196 @@ def test_kernel_matches_plain_version_on_the_card():
     got = port.fused_segment_reduce(up(c["seg"]), reds, 6)
     want = port.plain_segment_reduce(up(c["seg"]), reds, 6)
     _compare([g.cpu() for g in got], [w.cpu().numpy() for w in want], rel=1e-12)
+
+
+# ---------------------------------------------- kernel 1's launch plan (host)
+
+
+def _mixed_reds(n=64):
+    from trino_tpu_torch.ops.cuda.segreduce import SegRed
+
+    rng = np.random.default_rng(17)
+    f = torch.from_numpy(rng.normal(size=n))
+    i64 = torch.from_numpy(rng.integers(-99, 99, n).astype(np.int64))
+    i32 = i64.to(torch.int32)
+    b = i64 > 0
+    m1, m2 = torch.from_numpy(rng.random(n) < 0.5), torch.from_numpy(rng.random(n) < 0.5)
+    return [
+        SegRed("max", f, m1), SegRed("sum", i64, m1), SegRed("count", None, m2),
+        SegRed("min", i32, None), SegRed("sum", f, m1), SegRed("count", None, None),
+        SegRed("sum", b, m2), SegRed("max", i64, m1), SegRed("min", f, m2),
+        SegRed("sum", i32, None), SegRed("max", b, None), SegRed("min", i64, m1),
+    ]
+
+
+def test_launch_plan_sorts_by_kind_and_restores_the_callers_order():
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    reds = _mixed_reds()
+    plan = port.plan_launch(64, 6, reds, sms=132)
+    names = [port._KINDS[k] for k in plan.kinds]
+    assert names == sorted(names, key=port._KINDS.index)  # grouped in the kernel's order
+    assert sorted(plan.order) == list(range(len(reds)))
+    for pos, caller in enumerate(plan.order):
+        assert plan.kinds[pos] == port._kind(reds[caller])
+    ends = [0] + list(plan.kind_end)
+    for k in range(len(port._KINDS)):
+        assert all(plan.kinds[p] == k for p in range(ends[k], ends[k + 1]))
+    # kernel-ordered rows come back in the caller's order
+    rows = [torch.tensor([caller]) for caller in plan.order]
+    assert [int(r) for r in plan.unsort(rows)] == list(range(len(reds)))
+    # and the CPU path gives the plain results in the caller's order
+    seg = torch.from_numpy(np.random.default_rng(1).integers(0, 7, 64).astype(np.int32))
+    got = port.fused_segment_reduce(seg, reds, 6)
+    want = port.plain_segment_reduce(seg, reds, 6)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_launch_plan_reads_each_distinct_mask_once():
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    reds = _mixed_reds()
+    plan = port.plan_launch(64, 6, reds, sms=132)
+    assert len(plan.masks) == 2  # m1 and m2, each shared by several reductions
+    for pos, caller in enumerate(plan.order):
+        v = reds[caller].valid
+        if v is None:
+            assert plan.mask_of[pos] == -1
+        else:
+            assert plan.masks[plan.mask_of[pos]] is v
+    # q01's 20 operator-path reductions all share the live mask: one entry
+    live = torch.ones(64, dtype=torch.bool)
+    twenty = [port.SegRed("sum", torch.zeros(64, dtype=torch.int64), live) for _ in range(19)]
+    plan = port.plan_launch(64, 6, twenty + [port.SegRed("count", None, live)], sms=132)
+    assert len(plan.masks) == 1 and set(plan.mask_of) == {0}
+
+
+@pytest.mark.parametrize("n", [0, 1, 300, 65_536, 65_537, 64 * 2**20, 2**32 + 7])
+def test_launch_plan_caps_rows_per_block_so_32_bit_words_cannot_wrap(n):
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    reds = _mixed_reds()
+    plan = port.plan_launch(n, 6, reds, sms=132)
+    assert plan.shared_words > 0  # a small table: the shared route
+    if n == 0:
+        assert plan.blocks == 0
+        return
+    # grid-stride over blocks * 256 threads * R rows: a block sees at most
+    # this many rows
+    step = 256 * port._ROWS_PER_THREAD
+    assert plan.rows_per_block == -(-n // (plan.blocks * step)) * step
+    assert plan.rows_per_block <= port._BLOCK_ROWS
+    assert plan.blocks * port._BLOCK_ROWS >= n
+    # 16-bit limb sums and counts of a block stay below 2^32
+    assert plan.rows_per_block * 0xFFFF < 2**32
+    assert plan.blocks <= max(132 * 8, -(-n // port._BLOCK_ROWS))
+
+
+def test_launch_plan_lays_out_the_block_table_and_picks_the_route():
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    reds = _mixed_reds()
+    G = 6
+    plan = port.plan_launch(1000, G, reds, sms=132)
+    spans = []
+    for pos, caller in enumerate(plan.order):
+        size = port._entry_words(plan.kinds[pos])
+        if size == 2:
+            assert plan.words[pos] % 2 == 0  # 64-bit entries on 8-byte boundaries
+        spans.append((plan.words[pos], plan.words[pos] + size * G))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))  # no overlap
+    assert plan.shared_words == spans[-1][1]
+    assert plan.shared_words * 4 <= port._SHARED_BYTES
+    # q03's 2^20 groups take the global route
+    assert port.plan_launch(1000, 1 << 20, reds, sms=132).shared_words == 0
+    with pytest.raises(ValueError, match="reductions in one launch"):
+        port.plan_launch(10, 1, reds * 3, sms=132)
+
+
+def _card_case(name):
+    from trino_tpu_torch.ops.cuda.segreduce import SegRed
+
+    rng = np.random.default_rng(41)
+    n = 300_007
+    G = {"g1": 1, "one_group": 6, "carries": 6, "nan_inf": 6, "global": 1 << 20}[name]
+    if name in ("g1", "one_group"):
+        seg = np.full(n, G - 1, np.int32)
+    else:
+        seg = rng.integers(0, G, n).astype(np.int32)
+    vi = rng.integers(-10**12, 10**12, n).astype(np.int64)
+    if name == "carries":
+        vi = np.full(n, 2**32 - 1, np.int64)
+        vi[::5] = 2**62 + 2**40 + 0xFFFF
+    vf = rng.normal(0, 1e3, n)
+    if name == "nan_inf":
+        vf[[10, 20_000]] = np.nan
+        vf[[11, 12, 13]] = (np.inf, -np.inf, np.inf)
+    valid = rng.random(n) < 0.8
+    t = torch.from_numpy
+    reds = [
+        SegRed("count", None, None), SegRed("count", None, t(valid)),
+        SegRed("sum", t(vi), t(valid)), SegRed("sum", t(vi.astype(np.int32)), None),
+        SegRed("sum", t(vf), None), SegRed("min", t(vf), None), SegRed("max", t(vf), t(valid)),
+        SegRed("min", t(vi), t(valid)), SegRed("max", t(vi.astype(np.int32)), None),
+    ]
+    return seg, reds, G
+
+
+@pytest.mark.parametrize("name", ["g1", "one_group", "carries", "nan_inf", "global"])
+def test_card_cases_plain_version_vs_reference_fallback(name):
+    """The card cases' inputs on the CPU: the plain version agrees with the
+    reference's XLA fallback (NaN and +-inf compared as such)."""
+    import jax.numpy as jnp
+
+    from trino_tpu.ops.pallas import segreduce as ref
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    seg, reds, G = _card_case(name)
+    if name == "global":  # keep the reference's one-hot fallback small
+        reds = reds[:4]
+    got = port.fused_segment_reduce(torch.from_numpy(seg), reds, G)
+    want = ref._xla_fallback(
+        jnp.asarray(seg),
+        [ref.SegRed(r.op, None if r.values is None else jnp.asarray(r.values.numpy()),
+                    None if r.valid is None else jnp.asarray(r.valid.numpy())) for r in reds], G)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.numpy(), np.asarray(w)
+        if np.issubdtype(g.dtype, np.floating):
+            with np.errstate(invalid="ignore"):
+                same = (np.isnan(g) & np.isnan(w)) | (np.isinf(g) & (g == w))
+                ok = same | (np.abs(g - w) <= 1e-9 * np.maximum(np.abs(w), 1.0))
+            assert ok.all(), (name, i)
+        else:
+            assert np.array_equal(g, w.astype(g.dtype)), (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g1", "one_group", "carries", "nan_inf", "global"])
+def test_kernel_matches_plain_version_on_the_card_cases(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run chip_smoke.py on the card)")
+    from trino_tpu_torch.ops.cuda import segreduce as port
+
+    seg, reds, G = _card_case(name)
+    dev = torch.device("cuda")
+    up = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    got = port.fused_segment_reduce(up(torch.from_numpy(seg)),
+                                    [port.SegRed(r.op, up(r.values), up(r.valid)) for r in reds], G)
+    # the plain version on the CPU: torch's CUDA scatter_reduce may let a
+    # later value overwrite a NaN
+    want = port.plain_segment_reduce(torch.from_numpy(seg), reds, G)
+    _compare_nan([g.cpu() for g in got], [w.numpy() for w in want], rel=1e-12)
+
+
+def _compare_nan(got, want, rel):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if np.issubdtype(g.dtype, np.floating):
+            with np.errstate(invalid="ignore"):
+                same = (np.isnan(g) & np.isnan(w)) | (np.isinf(g) & (g == w))
+                ok = same | (np.abs(g - w) <= rel * np.maximum(np.abs(np.nan_to_num(w)), 1.0))
+            assert ok.all(), i
+        else:
+            assert np.array_equal(g, w), i

@@ -18,11 +18,12 @@ only the per-group totals.
     32 registers (assigned by liveness, so q01 needs six), each register
     statically typed I (integer / decimal / date / bool, held as a 128-bit
     integer) or F (double) and carrying a validity bit;
-  * `run` executes the bytecode: on CUDA tensors through the hand-written
-    kernel in csrc/fused_pipeline.cu (a per-row interpreter of that
-    bytecode), on CPU tensors through `run_plain`, a vectorised interpreter
-    of the SAME bytecode (one tensor op per instruction over all rows,
-    128-bit integers through data/dec128.py);
+  * `run` executes the bytecode: on CUDA tensors through a kernel generated
+    for the recipe (ops/cuda/fused_codegen.py lowers the bytecode into
+    straight-line CUDA C, NVRTC compiles it once per recipe shape), on CPU
+    tensors through `run_plain`, a vectorised interpreter of the SAME
+    bytecode (one tensor op per instruction over all rows, 128-bit integers
+    through data/dec128.py);
   * `assemble` turns the totals into aggregate output columns shaped like
     relops.group_aggregate's.
 
@@ -36,9 +37,9 @@ only by the order of the additions.
 Named limits: `_DTILE` (key-code domain <= 512) and `_MAX_STREAMS` (<= 64)
 are kept from the reference as the contract of what counts as a "small
 dictionary" aggregate.  There they were also the size of an on-chip
-accumulator tile; here they only bound the shared-memory accumulator, and
-larger tables would merely take the kernel's global-atomics route.
-`_MAX_REGS` and `_MAX_INSTR` are limits of this port's bytecode machine.
+accumulator tile; here they bound the generated kernel's tables, and
+tables too large for shared memory take its global-atomics route.
+`_MAX_REGS` and `_MAX_INSTR` bound the bytecode (and so the generated code).
 The reference's 2^47 bound on decimal constants (float-pair exactness) does
 not exist here: integer registers are 128 bits wide.
 """
@@ -55,7 +56,6 @@ import torch
 
 from ...data import dec128
 from ...plan.ir import Call, Const, FieldRef, IrExpr
-from .build import check_launch, load_library
 
 __all__ = [
     "plan_pipeline", "run", "run_plain", "assemble", "launches",
@@ -70,7 +70,7 @@ _MAX_COLS = 64
 
 _AGG_WHITELIST = ("sum", "count", "count_star", "avg")
 
-# opcodes — keep in step with the enum in csrc/fused_pipeline.cu
+# opcodes — ops/cuda/fused_codegen.py lowers each into CUDA C
 (
     OP_LOAD_COL, OP_LOAD_VALID, OP_CONST_I, OP_CONST_F, OP_CONST_NULL,
     OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_NEG_I,
@@ -429,10 +429,9 @@ def _register_reads(ins) -> list[int]:
 
 def _allocate_registers(prog):
     """Map the compiler's virtual registers onto as few machine registers as
-    their live ranges allow (linear scan over the straight-line program).
-    The CUDA kernel keeps 16 bytes of shared memory per register and thread,
-    so q01's fifteen values in six registers is what lets four blocks share
-    a multiprocessor.  Returns (program, registers used)."""
+    their live ranges allow (linear scan over the straight-line program):
+    q01's fifteen values fit six registers.  Returns (program, registers
+    used)."""
     last_use: dict[int, int] = {}
     for i, ins in enumerate(prog):
         op, dst = ins[0], ins[1]
@@ -612,20 +611,10 @@ def run(recipe: _Recipe, scan_cols, live: Optional[torch.Tensor]):
     return run_plain(recipe, scan_cols, live)
 
 
-class _FusedMeta(ctypes.Structure):
-    _fields_ = [
-        ("n_instr", ctypes.c_int32),
-        ("n_cols", ctypes.c_int32),
-        ("n_streams", ctypes.c_int32),
-        ("domain", ctypes.c_int32),
-        ("n_regs", ctypes.c_int32),
-        ("pad", ctypes.c_int32),
-        ("kinds", ctypes.c_uint8 * _MAX_STREAMS),
-    ]
-
-
 def _run_cuda(recipe, tensors, live, dev):
     global _launches
+    from . import fused_codegen, nvrtc
+
     n = tensors[0].shape[0] if tensors else live.shape[0]
     for t in tensors + ([live] if live is not None else []):
         if t.device != dev:
@@ -637,38 +626,29 @@ def _run_cuda(recipe, tensors, live, dev):
             )
     if live is not None and live.dtype != torch.bool:
         raise TypeError(f"fused_pipeline: live must be bool, got {live.dtype}")
-    lib = load_library()
-    fn = lib.trino_fused_pipeline
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.POINTER(_FusedMeta), ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    words: list[int] = []
-    for t, (_, _, code) in zip(tensors, recipe.table):
-        words += [t.data_ptr(), code]
-    for ins in recipe.program:
-        words += list(ins)
-    # pointers above 2^63 would not fit int64 lanes; device addresses do
-    tab = torch.tensor(words or [0], dtype=torch.int64).to(dev)
-    meta = _FusedMeta()
-    meta.n_instr = len(recipe.program)
-    meta.n_cols = len(recipe.table)
-    meta.n_streams = len(recipe.streams)
-    meta.domain = recipe.domain
-    meta.n_regs = recipe.n_regs
-    for i, (tag, _) in enumerate(recipe.streams):
-        meta.kinds[i] = _STREAM_KIND[tag]
-    totals = torch.zeros(
+    totals = torch.empty(
         (len(recipe.streams), 2, recipe.domain), dtype=torch.int64, device=dev
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(
-            tab.data_ptr(), None if live is None else live.data_ptr(), n,
-            ctypes.byref(meta), totals.data_ptr(), stream,
-        )
-    check_launch(lib, code, "fused_pipeline")
+        nvrtc.memset_async(totals.data_ptr(), totals.numel() * 8, stream)
+        if n == 0:
+            return totals
+        kern, gen = fused_codegen.kernel_for(recipe, dev.index)
+        words = fused_codegen.constants(recipe) or [0]
+        args = [ctypes.c_void_p(t.data_ptr()) for t in tensors] + [
+            ctypes.c_void_p(None if live is None else live.data_ptr()),
+            ctypes.c_longlong(n),
+            (ctypes.c_uint64 * len(words))(*words),
+            ctypes.c_void_p(totals.data_ptr()),
+        ]
+        per_sm = kern.blocks_per_sm(gen.threads, gen.smem)
+        if per_sm < 1:
+            raise RuntimeError(f"fused_pipeline: {gen.name} cannot fit one block on an SM")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rows_per_step = gen.threads * gen.rows_per_thread
+        grid = min(-(-n // rows_per_step), sms * per_sm)
+        kern.launch(grid, gen.threads, gen.smem, stream, args)
     _launches += 1
     return totals
 
