@@ -498,6 +498,32 @@ def probe_case(words, live, table, what: str, got=None) -> float:
     return float((gid >= 0).sum()) / max(1, int(live.sum()))
 
 
+def keys_in_runs(dev, n: int, W: int, seed: int, live_share: float, pool: int = 0,
+                 orderkeys: bool = False):
+    """n rows whose keys come in runs of equal keys, run lengths uniform in
+    1..7 (lineitem's lines of one order are adjacent), live or dead a run at
+    a time with `live_share`.  Each run takes a new random W-word key, or one
+    of `pool` random keys (so equal keys also meet across warps), or with
+    `orderkeys` TPC-H's sparse order key as its two int32 words.  Returns
+    (words, live)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lens = torch.randint(1, 8, (n // 3 + 8,), generator=g, device=dev)
+    n_runs = int((torch.cumsum(lens, 0) < n).sum()) + 1
+    run = torch.repeat_interleave(torch.arange(n_runs, device=dev), lens[:n_runs])[:n]
+    if orderkeys:  # keys 1..7, 32..39, 64..71, ... as lo and hi words
+        key = (run // 8) * 32 + run % 8 + 1
+        words = [(key & 0xFFFFFFFF).to(torch.int32), (key >> 32).to(torch.int32)]
+    else:
+        keys = torch.randint(-2**31, 2**31 - 1, (pool or n_runs, W), generator=g, device=dev,
+                             dtype=torch.int32)
+        if pool:
+            keys = keys[torch.randint(0, pool, (n_runs,), generator=g, device=dev)]
+        words = [keys[run, i].contiguous() for i in range(W)]
+    live = (torch.rand(n_runs, generator=g, device=dev) < live_share)[run]
+    return words, live
+
+
 def hash_edges(dev) -> None:
     from trino_tpu_torch.ops.cuda import hashagg
 
@@ -535,6 +561,14 @@ def hash_edges(dev) -> None:
     hash_case(words + [validity], live, 1024, "validity word")
     words, live = keyed(ints((20000, 6)), 300000)
     hash_case(words, live, 32768, "6-word keys")
+    # keys in runs, as a join's build side over lineitem brings them: every
+    # record size (8, 16 and 32 bytes), half the runs live; then runs drawing
+    # from 1000 keys, so equal keys also race across warps
+    for W in (1, 2, 3, 6):
+        words, live = keys_in_runs(dev, 200003, W, 50 + W, 0.5)
+        hash_case(words, live, 200003, f"runs W={W}")
+    words, live = keys_in_runs(dev, 200003, 2, 57, 0.5, pool=1000)
+    hash_case(words, live, 4096, "runs over 1000 keys")
     words, live = keyed(ints((3000, 2)), 50000, 1.0)
     got = hashagg.build_hash_table(words, live, 1024)
     if not bool(got[3]):
@@ -542,13 +576,10 @@ def hash_edges(dev) -> None:
     hash_case(words, live, 1024, "n_groups > cap", got=got)
 
 
-def hash_timed(dev, n: int) -> list:
-    """Q3's largest hash shapes (n = 8 Mi by default): a build of n rows
-    (n/8 distinct 2-word keys) into a join-sized table (cap = rows: 2^24
-    slots, 192 MB, at 8 Mi), and a probe of n rows into it, half of them
-    hits."""
-    from trino_tpu_torch.ops.cuda import hashagg, hashjoin
-
+def hash_timed_inputs(dev, n: int):
+    """The timed hash shape: n build rows drawing n/8 distinct 2-word keys at
+    random, all live, cap = n; n probe rows, half of them keys that were
+    built and half keys that were not.  Returns (words, live, cap, pwords)."""
     distinct, W = max(1, n // 8), 2
     g = torch.Generator(device=dev)
     g.manual_seed(37)
@@ -557,7 +588,22 @@ def hash_timed(dev, n: int) -> list:
     pick = torch.randint(0, distinct, (n,), generator=g, device=dev)
     words = [base[pick, i].contiguous() for i in range(W)]
     live = torch.ones(n, dtype=torch.bool, device=dev)
-    cap = n
+    hit = torch.rand(n, generator=g, device=dev) < 0.5
+    q = torch.where(hit, torch.randint(0, distinct, (n,), generator=g, device=dev),
+                    torch.randint(distinct, 2 * distinct, (n,), generator=g, device=dev))
+    pwords = [base[q, i].contiguous() for i in range(W)]
+    return words, live, n, pwords
+
+
+def hash_timed(dev, n: int) -> list:
+    """Q3's largest hash shapes (n = 8 Mi by default): a build of n rows
+    (n/8 distinct 2-word keys) into a join-sized table (cap = rows: 2^24
+    slots, 256 MB of 16-byte records, at 8 Mi), and a probe of n rows into
+    it, half of them hits."""
+    from trino_tpu_torch.ops.cuda import hashagg, hashjoin
+
+    words, live, cap, pwords = hash_timed_inputs(dev, n)
+    W = len(words)
     T = hashagg.table_size(cap)
     got = hashagg.build_hash_table(words, live, cap, keep_keys=False)
     hash_case(words, live, cap, f"timed n={n}", got=got, keep_keys=False)
@@ -568,10 +614,6 @@ def hash_timed(dev, n: int) -> list:
     b_lib = time_ms(lambda: torch.unique(stacked, dim=0, return_inverse=True), 1, 5)
 
     # probe rows: half from the built keys, half from keys never built
-    hit = torch.rand(n, generator=g, device=dev) < 0.5
-    q = torch.where(hit, torch.randint(0, distinct, (n,), generator=g, device=dev),
-                    torch.randint(distinct, 2 * distinct, (n,), generator=g, device=dev))
-    pwords = [base[q, i].contiguous() for i in range(W)]
     hit_share = probe_case(pwords, live, table, f"timed n={n}")
     if abs(hit_share - 0.5) > max(0.01, 3.0 / n ** 0.5):
         fail(f"hash_probe timed: hit share {hit_share}, expected ~0.5")
@@ -1166,7 +1208,9 @@ def main_path_phase(engine, cpu_engine, scale):
 
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
-    routes) and of every generated kernel 2 of this run, from cuobjdump."""
+    routes), of kernels 3 and 4 (one instantiation per key width W, with
+    their 64- and 128-bit vector loads) and of every generated kernel 2 of
+    this run, from cuobjdump."""
     import re
     import shutil
 
@@ -1175,7 +1219,7 @@ def sass_report() -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {"cuobjdump": None}
-    op = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG|LDL|STL)(?:\.[A-Z0-9_]+)*)")
+    op = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG|LDL|STL|LDG)(?:\.[A-Z0-9_]+)*)")
 
     def count(path, want) -> dict:
         text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
@@ -1188,14 +1232,29 @@ def sass_report() -> dict:
                 continue
             ops = {}
             for m in op.finditer(block):
+                # of the loads, only the vector ones (.64 / .128) are listed
+                if m.group(1).startswith("LDG") and not re.search(r"\.(64|128)\b", m.group(1)):
+                    continue
                 ops[m.group(1)] = ops.get(m.group(1), 0) + 1
             out[label] = ops
         return out
 
-    rep = count(build.LIB_PATH, lambda nm: None if "segreduce_kernel" not in nm
-                else ("segment_reduce/shared" if "ILb1E" in nm else "segment_reduce/global"))
+    def label(nm):
+        if "segreduce_kernel" in nm:
+            return "segment_reduce/shared" if "ILb1E" in nm else "segment_reduce/global"
+        for kernel, name in (("hash_build_kernel", "hash_build"),
+                             ("hash_probe_kernel", "hash_probe")):
+            if kernel in nm:
+                w = re.search(r"ILi(\d)E", nm)
+                return f"{name}/W{w.group(1) if w else '?'}"
+        return None
+
+    rep = count(build.LIB_PATH, label)
     for cubin in sorted(fused_codegen.CACHE_DIR.glob("*.cubin")):
         rep.update(count(cubin, lambda nm: f"fused_pipeline/{nm}"))
+    hash_rows = {k: v for k, v in rep.items() if k.startswith(("hash_build/", "hash_probe/"))}
+    rep["hash_kernels_local_memory"] = sum(
+        n for ops in hash_rows.values() for o, n in ops.items() if o.startswith(("LDL", "STL")))
     return rep
 
 

@@ -124,34 +124,65 @@ def test_hash_key_words_and_combined_hash_match_reference(for_join):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-def test_plain_build_vs_reference_kernel_interpreted():
-    """One interpret-mode run of the reference build: duplicates inside the
-    same sub-chunk, dead rows, 3 words, 300 distinct keys under cap 512."""
+def keys_in_runs(n: int, n_words: int, seed: int):
+    """n rows whose keys come in runs of equal keys, run lengths 1..7 (as
+    lineitem's lines of one order), each run a new random key of n_words
+    int32 words, live or dead a run at a time (about half live).  Returns
+    (rows [n, n_words] int32, live [n] bool)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 8, n)
+    run = np.repeat(np.arange(n), lens)[:n]
+    keys = rng.integers(-2**31, 2**31 - 1, size=(n, n_words)).astype(np.int32)
+    return keys[run], (rng.random(n) < 0.5)[run]
+
+
+BUILD_CASES = ["random", "runs-1", "runs-2", "runs-3", "runs-6"]
+
+
+def _build_rows(case: str, n: int, seed: int, n_keys: int = 300, live_share: float = 0.85):
+    """(rows [n, W] int32, live [n] bool) of a build case: `random` draws
+    the rows from n_keys keys of 3 words at random (duplicates inside one
+    sub-chunk of the reference), `runs-W` brings W-word keys in runs
+    (keys_in_runs: W = 1, 2, 3, 6 cover every record size, 8, 16 and 32
+    bytes)."""
+    if case == "random":
+        rng = np.random.default_rng(seed)
+        uniq = rng.integers(-2**31, 2**31 - 1, size=(n_keys, 3)).astype(np.int32)
+        return uniq[rng.integers(0, n_keys, n)], rng.random(n) < live_share
+    W = int(case.split("-")[1])
+    return keys_in_runs(n, W, seed + W)
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_plain_build_vs_reference_kernel_interpreted(case):
+    """The plain build and one interpret-mode run of the reference build
+    over the same rows: the same n_groups and overflow, the same partition
+    of the rows, -1 for dead rows, and group_keys holding each group's
+    key."""
     import jax.numpy as jnp
 
     from trino_tpu.ops.pallas import hashagg as ref
     from trino_tpu_torch.ops.cuda import hashagg
 
-    rng = np.random.default_rng(13)
-    n = 4096
-    uniq = rng.integers(-2**31, 2**31 - 1, size=(300, 3)).astype(np.int32)
-    rows = uniq[rng.integers(0, 300, n)]
-    words = [np.ascontiguousarray(rows[:, i]) for i in range(3)]
-    live = rng.random(n) < 0.85
+    rows, live = _build_rows(case, 4096 if case == "random" else 2000, 13)
+    cap = 512
+    W = rows.shape[1]
+    words = [np.ascontiguousarray(rows[:, i]) for i in range(W)]
     gid, table, n_groups, overflow = hashagg.build_hash_table(
-        [torch.from_numpy(w) for w in words], torch.from_numpy(live), 512
+        [torch.from_numpy(w) for w in words], torch.from_numpy(live), cap
     )
     r_gid, _, r_n, r_over = ref.build_hash_table(
-        [jnp.asarray(w) for w in words], jnp.asarray(live), 512, interpret=True
+        [jnp.asarray(w) for w in words], jnp.asarray(live), cap, interpret=True
     )
     assert int(n_groups) == int(r_n) == len({tuple(r) for r in rows[live]})
     assert bool(overflow) is bool(r_over) is False
     assert _same_partition(gid.numpy(), np.asarray(r_gid))
     assert gid.dtype == torch.int32 and (gid.numpy()[~live] == -1).all()
+    assert table.slots.shape == (hashagg.table_size(cap), hashagg.record_words(W))
     # the words the build kept per group id are the group's key
     gk = table.group_keys.numpy()
     g = gid.numpy()
-    for i in range(3):
+    for i in range(W):
         assert np.array_equal(gk[i][g[live]], words[i][live])
 
 
@@ -376,18 +407,21 @@ def test_policy_defaults_are_the_cards():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card():
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_kernel_matches_plain_version_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run chip_smoke.py on the card)")
     from trino_tpu_torch.ops.cuda import hashagg
 
-    rng = np.random.default_rng(5)
-    uniq = rng.integers(-2**31, 2**31 - 1, size=(5000, 3)).astype(np.int32)
-    rows = uniq[rng.integers(0, 5000, 100003)]
+    rows, live_np = _build_rows(case, 100003, 5, n_keys=5000, live_share=0.9)
+    cap = 8192 if case == "random" else 100003
     dev = torch.device("cuda")
-    words = [torch.from_numpy(np.ascontiguousarray(rows[:, i])).to(dev) for i in range(3)]
-    live = torch.from_numpy(rng.random(100003) < 0.9).to(dev)
-    gid, table, n, over = hashagg.build_hash_table(words, live, 8192)
-    pgid, _, pn, pover = hashagg.plain_build_hash_table(words, live, 8192)
+    words = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in rows.T]
+    live = torch.from_numpy(live_np).to(dev)
+    gid, table, n, over = hashagg.build_hash_table(words, live, cap)
+    pgid, _, pn, pover = hashagg.plain_build_hash_table(words, live, cap)
     assert int(n) == int(pn) and bool(over) is bool(pover) is False
     assert _same_partition(gid.cpu().numpy(), pgid.cpu().numpy())
+    g = gid.cpu().numpy()[live_np]
+    for i, w in enumerate(words):
+        assert torch.equal(table.group_keys[i].cpu()[g], w.cpu()[live_np])

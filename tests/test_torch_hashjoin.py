@@ -27,23 +27,46 @@ def _restore_policy():
     kernels.set_policy(kernels.KernelPolicy())
 
 
-def test_plain_probe_vs_reference_kernel_interpreted():
+PROBE_CASES = ["random", "runs-1", "runs-2", "runs-3", "runs-6"]
+
+
+def _probe_case(case: str, nb: int, seed: int):
+    """(build rows, build live, probe rows, probe live) of a probe case:
+    `random` builds nb rows from 200 of 300 2-word keys and probes 2048
+    rows drawn from all 300; `runs-W` builds W-word keys in runs
+    (keys_in_runs: every record size) and probes its own rows in another
+    order together with as many keys never built."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        uniq = rng.integers(-2**31, 2**31 - 1, size=(300, 2)).astype(np.int32)
+        b_rows = uniq[rng.integers(0, 200, nb)]  # keys 0..199 built, 200..299 absent
+        p_rows = uniq[rng.integers(0, 300, 2048)]
+        return b_rows, rng.random(nb) < 0.9, p_rows, rng.random(2048) < 0.9
+    from tests.test_torch_hashagg import keys_in_runs
+
+    W = int(case.split("-")[1])
+    b_rows, b_live = keys_in_runs(nb, W, seed + W)
+    absent = rng.integers(-2**31, 2**31 - 1, size=(nb, W)).astype(np.int32)
+    p_rows = np.concatenate([b_rows, absent])[rng.permutation(2 * nb)]
+    return b_rows, b_live, p_rows, rng.random(2 * nb) < 0.9
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_plain_probe_vs_reference_kernel_interpreted(case):
+    """Build and probe with the plain versions and with the reference's
+    interpreted kernels: the ids of both sides agree through one consistent
+    map, and the hits are exactly the live probe rows whose key was built
+    live."""
     import jax.numpy as jnp
 
     from trino_tpu.ops.pallas import hashagg as ref_build
     from trino_tpu.ops.pallas import hashjoin as ref_probe
     from trino_tpu_torch.ops.cuda import hashagg, hashjoin
 
-    rng = np.random.default_rng(21)
-    nb, n_probe = 400, 2048
-    uniq = rng.integers(-2**31, 2**31 - 1, size=(300, 2)).astype(np.int32)
-    b_rows = uniq[rng.integers(0, 200, nb)]  # keys 0..199 built, 200..299 absent
-    p_rows = uniq[rng.integers(0, 300, n_probe)]
-    bw = [np.ascontiguousarray(b_rows[:, i]) for i in range(2)]
-    pw = [np.ascontiguousarray(p_rows[:, i]) for i in range(2)]
-    b_live = rng.random(nb) < 0.9
-    p_live = rng.random(n_probe) < 0.9
-
+    b_rows, b_live, p_rows, p_live = _probe_case(case, 400 if case == "random" else 1000, 21)
+    nb, W = b_rows.shape
+    bw = [np.ascontiguousarray(b_rows[:, i]) for i in range(W)]
+    pw = [np.ascontiguousarray(p_rows[:, i]) for i in range(W)]
     gid_b, table, _, over = hashagg.build_hash_table(
         [torch.from_numpy(w) for w in bw], torch.from_numpy(b_live), nb, keep_keys=False
     )
@@ -208,18 +231,27 @@ def test_join_build_over_limit_dispatches_fallback_and_force_sort():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card():
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_kernel_matches_plain_version_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run chip_smoke.py on the card)")
     from trino_tpu_torch.ops.cuda import hashagg, hashjoin
 
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
-    keys = torch.from_numpy(rng.integers(0, 20000, 50000).astype(np.int32)).to(dev)
-    probe = torch.from_numpy(rng.integers(0, 40000, 100003).astype(np.int32)).to(dev)
-    live = torch.ones(50000, dtype=torch.bool, device=dev)
-    plive = torch.from_numpy(rng.random(100003) < 0.9).to(dev)
-    _, table, _, _ = hashagg.build_hash_table([keys], live, 50000, keep_keys=False)
-    got, unres = hashjoin.probe_hash_table([probe], plive, table)
-    want, punres = hashjoin.plain_probe_hash_table([probe], plive, table)
+    if case == "random":
+        b_rows = rng.integers(0, 20000, (50000, 1)).astype(np.int32)
+        p_rows = rng.integers(0, 40000, (100003, 1)).astype(np.int32)
+        b_live, p_live = np.ones(50000, bool), rng.random(100003) < 0.9
+    else:
+        b_rows, b_live, p_rows, p_live = _probe_case(case, 200003, 7)
+
+    def cols(rows):
+        return [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in rows.T]
+
+    _, table, _, _ = hashagg.build_hash_table(cols(b_rows), torch.from_numpy(b_live).to(dev),
+                                              b_rows.shape[0], keep_keys=False)
+    plive = torch.from_numpy(p_live).to(dev)
+    got, unres = hashjoin.probe_hash_table(cols(p_rows), plive, table)
+    want, punres = hashjoin.plain_probe_hash_table(cols(p_rows), plive, table)
     assert torch.equal(got, want) and not bool(unres) and not bool(punres)

@@ -8,12 +8,14 @@ an empty slot (and allocates the next id).  Equality is decided on the full
 words; a 64-bit splitmix hash of the words (`hash_words`, bit-identical to
 the reference) picks only the start slot.
 
-Layout, in device memory: T = 2 * pow2(cap) slots (load factor <= 0.5);
-`state[T]` int32 holds EMPTY (-1), BUSY (-2, claimed, key being written) or
-the published group id; `keys[W, T]` int32 holds the words of each slot.
-The reference kept a [16, T] f32 table in VMEM (16-bit key halves, one-hot
-matmuls, at most 8192 slots); none of that carries over — the card's table
-is as large as its memory and its slots are read and written directly.
+Layout, in device memory: T = 2 * pow2(cap) slots (load factor <= 0.5),
+one record of R = record_words(W) int32 per slot, `slots[T, R]`: word 0 is
+the state — EMPTY (-1), BUSY (-2, claimed, key being written) or the
+published group id — and words 1..W the key (8, 16 or 32 bytes a record, so
+a walk reads a slot with one vector load from one sector).  The reference
+kept a [16, T] f32 table in VMEM (16-bit key halves, one-hot matmuls, at
+most 8192 slots); none of that carries over — the card's table is as large
+as its memory and its slots are read and written directly.
 
 On CUDA tensors `build_hash_table` launches the kernel in csrc/hashagg.cu
 (or raises); on CPU tensors it runs `plain_build_hash_table`, vectorised
@@ -33,7 +35,7 @@ import torch
 from .build import check_launch, load_library
 
 __all__ = [
-    "MAX_WORDS", "HashTable", "table_size", "shape_supported", "hash_words",
+    "MAX_WORDS", "HashTable", "table_size", "record_words", "shape_supported", "hash_words",
     "build_hash_table", "plain_build_hash_table", "launches", "reset_launches",
 ]
 
@@ -60,15 +62,17 @@ def reset_launches() -> None:
 
 @dataclass
 class HashTable:
-    state: torch.Tensor  # [T] int32: EMPTY, BUSY or the slot's group id
-    keys: torch.Tensor  # [W, T] int32: the words of each published slot
+    # [T, record_words(W)] int32: per slot its state (EMPTY, BUSY or the
+    # group id), then the words of its key
+    slots: torch.Tensor
+    n_words: int  # W
     # [W, cap] int32: the words of group g at column g (g < cap), written by
     # the claiming row; None when the caller did not ask for them
     group_keys: Optional[torch.Tensor]
 
     @property
     def size(self) -> int:
-        return int(self.state.shape[0])
+        return int(self.slots.shape[0])
 
 
 def _pow2(x: int) -> int:
@@ -78,6 +82,12 @@ def _pow2(x: int) -> int:
 def table_size(cap: int) -> int:
     """Slots for `cap` distinct keys: load factor <= 0.5."""
     return 2 * _pow2(max(int(cap), 1))
+
+
+def record_words(n_words: int) -> int:
+    """int32 words of one slot record: the state and W key words, rounded up
+    to 8, 16 or 32 bytes (csrc/hashtable.cuh trino_record_words)."""
+    return 2 if n_words == 1 else 4 if n_words <= 3 else 8
 
 
 def shape_supported(n: int, n_words: int, cap: int) -> bool:
@@ -136,7 +146,7 @@ def build_hash_table(
 
 def plain_build_hash_table(words, live, cap: int, *, keep_keys: bool = True):
     """Vectorised rounds over the kernel's table layout.  Each round, every
-    walking row reads `state` and the words at its slot: a published equal
+    walking row reads its slot's record (state and words): a published equal
     key resolves it; claimants of an EMPTY slot pick one winner per slot
     (the smallest row index, by scatter_reduce amin); winners take
     n_groups + rank in row order and publish their slot; losers retry the
@@ -147,9 +157,8 @@ def plain_build_hash_table(words, live, cap: int, *, keep_keys: bool = True):
     W = len(words)
     T = table_size(cap)
     mask = T - 1
-    wmat = torch.stack([w.to(torch.int64) for w in words])  # [W, n]
-    state = torch.full((T,), EMPTY, dtype=torch.int32, device=dev)
-    keys = torch.zeros((W, T), dtype=torch.int32, device=dev)
+    wmat = torch.stack(list(words), 1)  # [n, W] int32
+    slots = torch.full((T, record_words(W)), EMPTY, dtype=torch.int32, device=dev)
     gk = torch.zeros((W, cap), dtype=torch.int32, device=dev) if keep_keys else None
     gid = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
@@ -159,10 +168,9 @@ def plain_build_hash_table(words, live, cap: int, *, keep_keys: bool = True):
     n_groups = 0
     overflow = False
     while rows.numel():
-        st = state.index_select(0, slot).to(torch.int64)
-        eq = st >= 0
-        for w in range(W):
-            eq &= keys[w].index_select(0, slot).to(torch.int64) == wmat[w].index_select(0, rows)
+        rec = slots.index_select(0, slot)
+        st = rec[:, 0].to(torch.int64)
+        eq = (st >= 0) & (rec[:, 1:1 + W] == wmat.index_select(0, rows)).all(1)
         gid[rows[eq]] = st[eq].to(torch.int32)
 
         empty = st == EMPTY
@@ -173,11 +181,11 @@ def plain_build_hash_table(words, live, cap: int, *, keep_keys: bool = True):
         won = best.index_select(0, cs) == cr
         ws, wr = cs[won], cr[won]  # one row per slot, rows ascending
         new = n_groups + torch.arange(wr.numel(), dtype=torch.int64, device=dev)
-        state[ws] = new.to(torch.int32)
-        keys[:, ws] = wmat[:, wr].to(torch.int32)
+        slots[ws, 0] = new.to(torch.int32)
+        slots[ws, 1:1 + W] = wmat.index_select(0, wr)
         if gk is not None:
             fit = new < cap
-            gk[:, new[fit]] = wmat[:, wr[fit]].to(torch.int32)
+            gk[:, new[fit]] = wmat.index_select(0, wr[fit]).T
         gid[wr] = new.to(torch.int32)
         n_groups += int(wr.numel())
 
@@ -191,7 +199,7 @@ def plain_build_hash_table(words, live, cap: int, *, keep_keys: bool = True):
         walking = ~eq & ~winner & ~lost
         rows, slot, steps = rows[walking], slot[walking], steps[walking]
     overflow = overflow or n_groups > cap
-    table = HashTable(state, keys, gk)
+    table = HashTable(slots, W, gk)
     return (
         gid, table, torch.tensor(n_groups, dtype=torch.int32, device=dev),
         torch.tensor(overflow, dtype=torch.bool, device=dev),
@@ -227,8 +235,7 @@ def _cuda_build(words, live, cap: int, keep_keys: bool):
         raise ValueError(f"build_hash_table: unsupported shape n={n} words={W} cap={cap}")
     if not live.is_contiguous():
         raise ValueError("build_hash_table: live must be contiguous")
-    state = torch.full((T,), EMPTY, dtype=torch.int32, device=dev)
-    keys = torch.empty((W, T), dtype=torch.int32, device=dev)
+    slots = torch.full((T, record_words(W)), EMPTY, dtype=torch.int32, device=dev)
     gk = torch.zeros((W, cap), dtype=torch.int32, device=dev) if keep_keys else None
     gid = torch.empty((n,), dtype=torch.int32, device=dev)
     counters = torch.zeros((2,), dtype=torch.int32, device=dev)  # n_groups, overflow
@@ -239,17 +246,17 @@ def _cuda_build(words, live, cap: int, keep_keys: bool):
         fn.argtypes = [
             _Words, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             code = fn(
-                word_table(words), W, live.data_ptr(), n, T, cap, state.data_ptr(),
-                keys.data_ptr(), None if gk is None else gk.data_ptr(), gid.data_ptr(),
+                word_table(words), W, live.data_ptr(), n, T, cap, slots.data_ptr(),
+                None if gk is None else gk.data_ptr(), gid.data_ptr(),
                 counters.data_ptr(), PROBE_LIMIT, stream,
             )
         check_launch(lib, code, "hash_build")
         _launches += 1
     n_groups = counters[0]
     overflow = (counters[1] != 0) | (n_groups > cap)
-    return gid, HashTable(state, keys, gk), n_groups, overflow
+    return gid, HashTable(slots, W, gk), n_groups, overflow

@@ -47,9 +47,9 @@ def probe_hash_table(words: Sequence[torch.Tensor], live: torch.Tensor, table: H
     miss or a dead row; unresolved — device bool, some walk ran past its
     budget and the result must not be used)."""
     _check(words, live, "probe_hash_table")
-    if table.keys.shape[0] != len(words):
+    if table.n_words != len(words):
         raise ValueError(
-            f"probe_hash_table: {len(words)} key words against a {table.keys.shape[0]}-word table"
+            f"probe_hash_table: {len(words)} key words against a {table.n_words}-word table"
         )
     if live.device.type == "cuda":
         return _cuda_probe(words, live, table)
@@ -57,22 +57,22 @@ def probe_hash_table(words: Sequence[torch.Tensor], live: torch.Tensor, table: H
 
 
 def plain_probe_hash_table(words, live, table: HashTable):
-    """Vectorised rounds: each walking row reads its slot; equal words
+    """Vectorised rounds: each walking row reads its slot's record; equal words
     resolve it to the slot's id, EMPTY to a miss, anything else steps on."""
     dev = live.device
     n = live.shape[0]
     T = table.size
     mask = T - 1
+    wmat = torch.stack(list(words), 1)  # [n, W] int32
     gid = torch.full((n,), -1, dtype=torch.int32, device=dev)
     rows = torch.nonzero(live).flatten()
     slot = hash_words(words, live).index_select(0, rows) & mask
     steps = torch.zeros_like(rows)
     unresolved = False
     while rows.numel():
-        st = table.state.index_select(0, slot)
-        eq = st >= 0
-        for w, word in enumerate(words):
-            eq &= table.keys[w].index_select(0, slot) == word.index_select(0, rows)
+        rec = table.slots.index_select(0, slot)
+        st = rec[:, 0]
+        eq = (st >= 0) & (rec[:, 1:1 + len(words)] == wmat.index_select(0, rows)).all(1)
         gid[rows[eq]] = st[eq]
         step = ~eq & (st != EMPTY)
         slot = torch.where(step, (slot + 1) & mask, slot)
@@ -90,7 +90,7 @@ def _cuda_probe(words, live, table: HashTable):
     n = live.shape[0]
     if not live.is_contiguous():
         raise ValueError("probe_hash_table: live must be contiguous")
-    if table.state.device != dev or not (table.state.is_contiguous() and table.keys.is_contiguous()):
+    if table.slots.device != dev or not table.slots.is_contiguous():
         raise ValueError("probe_hash_table: the table must be contiguous and on the rows' device")
     gid = torch.empty((n,), dtype=torch.int32, device=dev)
     unresolved = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -100,15 +100,14 @@ def _cuda_probe(words, live, table: HashTable):
         fn.restype = ctypes.c_int
         fn.argtypes = [
             _Words, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             code = fn(
                 word_table(words), len(words), live.data_ptr(), n, table.size,
-                table.state.data_ptr(), table.keys.data_ptr(), gid.data_ptr(),
-                unresolved.data_ptr(), PROBE_LIMIT, stream,
+                table.slots.data_ptr(), gid.data_ptr(), unresolved.data_ptr(), PROBE_LIMIT,
+                stream,
             )
         check_launch(lib, code, "hash_probe")
         _launches += 1

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Time kernels 1 and 2 of a checkout of the port at the shapes PERF.md tracks.
+"""Time kernels 1-4 of a checkout of the port at the shapes PERF.md tracks.
 
     python3 trino_tpu_torch/tools/time_kernels.py [--package-root DIR] [--rows N]
         [--iters K]
 
 `trino_tpu_torch` is imported from DIR (default: the checkout holding this
 file), and only through calls every version of the port has (`Engine.plan`,
-`fused.plan_pipeline`, `fused.run`, `segreduce.fused_segment_reduce`), so
-the same script times an older checkout's kernels beside this one's.  Run
-the two in one machine, in turns (old, new, new, old): two calls may land on
-two cards.  Shapes, all made on the card from a seed at N rows (64 Mi by
-default): kernel 2 on the fused recipes of TPC-H Q1 and Q6 and of Q1 grouped
-by four keys (D = 168); kernel 1 on a 6-reduction GROUP BY over 6 groups and
-on the 20 reductions q01 sends through the operator path (16 decimal limb
-sums, 3 double sums, 1 count).  Where DIR's kernel 2 is generated per recipe,
-the D = 168 recipe is also timed with its table forced past shared memory
-(the global-atomics route) beside the route it takes.  Each line: the
-kernel's median time over K launches (CUDA events, chip_smoke.py's
-`time_ms`), the first call's time (with a generated kernel's compile), the
-bytes bound on an H100 (chip_smoke.py's rate), and the card's name and power
-limit.  Needs a CUDA card; exits 2 without one.
+`fused.plan_pipeline`, `fused.run`, `segreduce.fused_segment_reduce`,
+`hashagg.build_hash_table`, `hashjoin.probe_hash_table`), so the same script
+times an older checkout's kernels beside this one's.  Run the two in one
+machine, in turns (old, new, new, old): two calls may land on two cards.
+Shapes, all made on the card from a seed: at N rows (64 Mi by default),
+kernel 2 on the fused recipes of TPC-H Q1 and Q6 and of Q1 grouped by four
+keys (D = 168); kernel 1 on a 6-reduction GROUP BY over 6 groups and on the
+20 reductions q01 sends through the operator path (16 decimal limb sums, 3
+double sums, 1 count).  Where DIR's kernel 2 is generated per recipe, the
+D = 168 recipe is also timed with its table forced past shared memory (the
+global-atomics route) beside the route it takes.  Kernels 3 and 4 (build,
+then probe of the table built) at two shapes: chip_smoke.py's timed shape
+(N/8 rows drawing N/64 distinct 2-word keys at random, 2^24 slots at the
+default N; probe rows half hits) and join #5 of TPC-H Q3 at SF 1 (6,002,367
+lineitem rows, order keys in runs of 1-7, live an order at a time, ~827 K
+distinct live keys, cap = rows, 2^24 slots; probed by the 1.5 M order keys,
+half of them live).  Each line: the kernel's median time over K launches
+(CUDA events, chip_smoke.py's `time_ms`), the first call's time (with a
+generated kernel's compile), the bytes bound on an H100 (chip_smoke.py's
+rate), and the card's name and power limit.  Needs a CUDA card; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -184,6 +191,37 @@ def segreduce_bytes(seg, reds, G) -> int:
     return sum(seen.values()) + len(reds) * G * 8
 
 
+def hash_shapes(smoke, dev, n_rows: int) -> dict:
+    """name -> (build words, build live, cap, probe words, probe live)."""
+    import torch
+
+    words, live, cap, pwords = smoke.hash_timed_inputs(dev, n_rows // 8)
+    shapes = {"timed": (words, live, cap, pwords, live)}
+    n = 6_002_367
+    words, live = smoke.keys_in_runs(dev, n, 2, 61, 0.551, orderkeys=True)
+    orders = torch.unique(words[0])  # every order key once, ascending
+    g = torch.Generator(device=dev)
+    g.manual_seed(62)
+    plive = torch.rand(orders.numel(), generator=g, device=dev) < 0.5
+    shapes["join5"] = (words, live, n, [orders.contiguous(), torch.zeros_like(orders)], plive)
+    return shapes
+
+
+def hash_bytes(smoke, words, live, table_slots: int) -> int:
+    """The work of a build or probe as chip_smoke.py bounds it: the words and
+    the live byte in, the id out, and past L2 one sector per distinct start
+    slot the live rows touch."""
+    import torch
+
+    from trino_tpu_torch.ops.cuda import hashagg
+
+    n, W = live.shape[0], len(words)
+    stream = n * (4 * W + 1) + 4 * n
+    touched = torch.unique(hashagg.hash_words(words, live)[live] & (table_slots - 1)).numel()
+    past_l2 = table_slots * 4 * (1 + W) > smoke.L2_BYTES
+    return stream + (smoke.SECTOR * touched if past_l2 else 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", default=os.path.dirname(os.path.dirname(
@@ -199,7 +237,7 @@ def main(argv=None) -> int:
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
     from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops.cuda import fused
+    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin
     from trino_tpu_torch.ops.cuda import segreduce as sr
     from trino_tpu_torch.runtime.engine import Engine
 
@@ -207,9 +245,6 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0] if smi else torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
-    engine = Engine(device="cuda")
-    engine.register_catalog("tpch", TpchConnector(0.01))
-    by_name = lineitem_columns(args.rows, dev)
     base = {"package": os.path.abspath(args.package_root), "card": card, "rows": args.rows}
 
     def emit(name, fn, n_bytes, **extra):
@@ -222,6 +257,26 @@ def main(argv=None) -> int:
         bound = n_bytes / smoke.HBM_BYTES_PER_S * 1e3
         print(json.dumps({**base, "shape": name, "ms": ms, "first_call_ms": first,
                           "bound_ms": bound, "share_of_bound": bound / ms, **extra}), flush=True)
+
+    for shape, (words, live, cap, pwords, plive) in hash_shapes(smoke, dev, args.rows).items():
+        T = hashagg.table_size(cap)
+        extra = {"rows": live.shape[0], "live_rows": int(live.sum()), "words": len(words),
+                 "table_slots": T}
+        gid, table, n_groups, _ = hashagg.build_hash_table(words, live, cap, keep_keys=False)
+        emit(f"hash_build_{shape}",
+             lambda: hashagg.build_hash_table(words, live, cap, keep_keys=False),
+             hash_bytes(smoke, words, live, T), groups=int(n_groups), **extra)
+        extra.update(rows=plive.shape[0], live_rows=int(plive.sum()))
+        emit(f"hash_probe_{shape}", lambda: hashjoin.probe_hash_table(pwords, plive, table),
+             hash_bytes(smoke, pwords, plive, T),
+             hits=int((hashjoin.probe_hash_table(pwords, plive, table)[0] >= 0).sum()),
+             **extra)
+        del gid, table
+        torch.cuda.empty_cache()
+
+    engine = Engine(device="cuda")
+    engine.register_catalog("tpch", TpchConnector(0.01))
+    by_name = lineitem_columns(args.rows, dev)
 
     try:
         from trino_tpu_torch.ops.cuda import fused_codegen as fc
