@@ -9,13 +9,15 @@ it meets, holds each of the five kernels against its plain PyTorch version
 on the card (edge cases, warp-level cases, then timed inputs at the main
 path's largest shapes: a 64 Mi-row TPC-H lineitem column set through the
 fused recipes of Q1 and Q6 and through 6- and 20-reduction GROUP BYs, an
-8 Mi-row hash build and probe, four radix passes over 64 Mi keys), and
-drives the port's main path — `Engine.query` on TPC-H scale factor 1: Q1,
-Q6 and a min/max group-by through the segmented reduce and the fused
-pipeline, Q3 through the hash build and probe (and through the sort paths
-with kernels off), and the ten most expensive line items through radix
-select — checking every result against an independent numpy reference and
-against the same query on `Engine(device="cpu")`.  Each phase prints one
+8 Mi-row hash build and probe, the radix selection over 64 Mi keys — prices
+at K = 10 and random keys at K = 4096), and drives the port's main path —
+`Engine.query` on TPC-H scale factor 1: Q1, Q6 and a min/max group-by
+through the segmented reduce and the fused pipeline, Q3 through the hash
+build and probe (and through the sort paths with kernels off), the ten most
+expensive line items through radix select, and three statements whose DATE
+min/max is NULL (both kernel settings) — checking every result against an
+independent numpy reference and against the same query on
+`Engine(device="cpu")`.  Each phase prints one
 JSON line; the last line of standard output is `{"ok": true, "device":
 {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -82,6 +84,13 @@ QMM = (
     "select l_returnflag, min(l_shipdate), max(l_extendedprice), count(*) "
     "from lineitem group by l_returnflag order by 1"
 )
+# DATE min/max over no rows: NULL, not the empty group's sentinel
+NULL_DATES = {
+    "null_min": "select min(l_shipdate) from lineitem where l_quantity < 0",
+    "null_max": "select max(o_orderdate) from orders where o_orderkey < 0",
+    "null_left": "select c_custkey, min(o_orderdate) from customer left join orders "
+                 "on c_custkey = o_custkey group by c_custkey order by c_custkey limit 10",
+}
 
 
 def emit(obj) -> None:
@@ -115,7 +124,7 @@ def time_ms(fn, warmup: int, iters: int) -> float:
 # largest double-sum error relative to sum|x| seen per kernel (the integer
 # kernels are compared exactly and stay at 0)
 REL_ERR = {"segment_reduce": 0.0, "fused_pipeline": 0.0, "hash_build": 0.0,
-           "hash_probe": 0.0, "radix_histogram": 0.0}
+           "hash_probe": 0.0, "radix_select": 0.0}
 L2_BYTES = 50 * 1024 * 1024  # H100 L2
 SECTOR = 32  # bytes of device memory behind one random table-slot read
 
@@ -645,45 +654,54 @@ def hash_timed(dev, n: int) -> list:
     ]
 
 
-# -------------------------------------------- kernel 5: radix_histogram
+# ----------------------------------------------- kernel 5: radix_select
 
 
-def hist_case(u, live, prefix, shift, what: str, got=None) -> torch.Tensor:
+def radix_check(u, live, k: int, cap, got, what: str) -> None:
+    """Kernel 5's selection `got` against its plain version on the same
+    inputs: each pass's histogram at the prefix the selection reached, the
+    threshold, and with `cap` the candidates' ids and `required` (past the
+    cap, the kernel keeps some `cap` candidates: they are checked to be
+    candidates, ascending)."""
     from trino_tpu_torch.ops.cuda import topk
 
-    if got is None:
-        got = topk.radix_histogram(u, live, prefix, shift)
     torch.cuda.synchronize()
-    want = topk.plain_radix_histogram(u, live, prefix, shift)
-    if not torch.equal(got, want):
-        fail(f"radix_histogram {what} shift {shift}: kernel and plain version differ")
-    return got
+    want = topk.plain_radix_select(u, live, k, cap)
+    if int(got.threshold) != int(want.threshold):
+        fail(f"radix_select {what}: threshold {int(got.threshold)}, plain {int(want.threshold)}")
+    for p, (g, w) in enumerate(zip(got.hists, want.hists)):
+        if not torch.equal(g, w):
+            fail(f"radix_select {what}: pass {p + 1}'s histogram differs from the plain version's")
+    if cap is None:
+        return
+    req = int(want.required)
+    if int(got.required) != req:
+        fail(f"radix_select {what}: required {int(got.required)}, plain {req}")
+    m = min(req, cap)
+    ids = got.ids[:m]
+    if req <= cap:
+        if not torch.equal(ids, want.ids[:m]):
+            fail(f"radix_select {what}: candidate ids differ from the plain version's")
+    elif not (bool((ids[1:] > ids[:-1]).all()) and bool(live[ids].all())
+              and bool(((u[ids].to(torch.int64) & 0xFFFFFFFF) >= int(got.threshold)).all())):
+        fail(f"radix_select {what}: the {cap} ids past the cap are not ascending candidates")
 
 
-def radix_case(u, live, k: int, what: str):
-    """Four passes of kernel 5, each held against its plain version at the
-    prefix the selection reached; the threshold against an independent sort:
-    the K-th largest live key (the smallest live key when K exceeds them)."""
+def radix_case(u, live, k: int, what: str, cap=None):
+    """One call of kernel 5 held against its plain version, and the
+    threshold against an independent sort: the K-th largest live key (the
+    smallest live key when K exceeds them)."""
     from trino_tpu_torch.ops.cuda import topk
 
-    real = topk.radix_histogram
-    passes = []
-
-    def checked(uu, lv, prefix, shift):
-        passes.append((prefix.clone(), shift))
-        return hist_case(uu, lv, prefix, shift, what, got=real(uu, lv, prefix, shift))
-
-    topk.radix_histogram = checked
-    try:
-        thr = int(topk.radix_topk_threshold(u, live, k))
-    finally:
-        topk.radix_histogram = real
+    got = topk.radix_select(u, live, k, cap)
+    radix_check(u, live, k, cap, got, what)
     keys = (u.to(torch.int64) & 0xFFFFFFFF)[live]
     if keys.numel():
         want = int(torch.sort(keys, descending=True).values[min(k, keys.numel()) - 1])
-        if thr != want:
-            fail(f"radix select {what}: threshold {thr}, the {k}-th largest key is {want}")
-    return passes
+        if int(got.threshold) != want:
+            fail(f"radix select {what}: threshold {int(got.threshold)}, "
+                 f"the {k}-th largest key is {want}")
+    return got
 
 
 def radix_edges(dev) -> None:
@@ -697,39 +715,78 @@ def radix_edges(dev) -> None:
     live = torch.rand(n, generator=g, device=dev) < 0.9
     rnd = u32(torch.randint(0, 2**32, (n,), generator=g, device=dev, dtype=torch.int64))
     prices = u32(torch.randint(90000, 10500000, (n,), generator=g, device=dev) + 2**31)
+    cap = 16384
     radix_case(torch.empty(0, dtype=torch.int32, device=dev),
                torch.zeros(0, dtype=torch.bool, device=dev), 10, "empty")
-    radix_case(rnd, torch.zeros(n, dtype=torch.bool, device=dev), 10, "all dead")
-    radix_case(torch.full((n,), -7, dtype=torch.int32, device=dev), live, 10, "all keys equal")
+    radix_case(rnd, torch.zeros(n, dtype=torch.bool, device=dev), 10, "all dead", cap)
+    # every key equal: the buffer cannot hold the chosen bin, and the
+    # candidates overflow the cap
+    radix_case(torch.full((n,), -7, dtype=torch.int32, device=dev), live, 10, "all keys equal", cap)
     for k in (1, 10, 4096):
-        radix_case(rnd, live, k, f"random keys k={k}")
-        radix_case(prices, live, k, f"int32-mapped prices k={k}")
+        radix_case(rnd, live, k, f"random keys k={k}", cap)
+        radix_case(prices, live, k, f"int32-mapped prices k={k}", cap)  # k=4096: past the buffer
     few = torch.rand(n, generator=g, device=dev) < 0.00005
-    radix_case(rnd, few, 10, "fewer live rows than K")
+    radix_case(rnd, few, 10, "fewer live rows than K", cap)
+    # views that start inside their storage: unaligned head rows and live bytes
+    for a, b in ((1, 3), (3, 2), (2, 0)):
+        m = n - 3
+        radix_case(rnd[a:a + m], live[b:b + m], 10, f"offset view {a}/{b}", cap)
+        radix_case(prices[a:a + m], live[b:b + m], 4096, f"offset view {a}/{b} prices", cap)
+
+
+def radix_timed_inputs(dev, n: int, kind: str):
+    """(u, live, k) of a timed shape, made on the card from a seed: "prices"
+    — n int32-mapped cent values, 90 % live, K = 10 (the topn statement's
+    key); "random" — n random u32 keys, 90 % live, K = 4096."""
+    g = torch.Generator(device=dev)
+    if kind == "prices":
+        g.manual_seed(43)
+        u = (torch.randint(90000, 10500000, (n,), generator=g, device=dev) + 2**31).to(torch.int32)
+        k = 10
+    else:
+        g.manual_seed(47)
+        u = torch.randint(0, 2**32, (n,), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+        k = 4096
+    live = torch.rand(n, generator=g, device=dev) < 0.9
+    return u, live, k
+
+
+def radix_bound_ms(n: int) -> float:
+    """The selection's bound: the keys and live bytes read once."""
+    return (n * 5 + 256 * 8) / HBM_BYTES_PER_S * 1e3
 
 
 def radix_timed(dev, n: int) -> dict:
-    """Four passes over n keys (64 Mi by default) shaped like the topn
-    statement's: int32-mapped prices, so the first byte is one bin for every
-    row."""
+    """The whole selection, `radix_topk_threshold(u, live, k)`, over n keys
+    (64 Mi by default) at both timed shapes; beside it the plain selection,
+    `torch.topk` (the one PyTorch call that yields the K-th largest; the
+    dead rows are masked to -1 outside the timed window) and three
+    `torch.bincount`s over the passes' masked digits."""
     from trino_tpu_torch.ops.cuda import topk
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(43)
-    u = (torch.randint(90000, 10500000, (n,), generator=g, device=dev) + 2**31).to(torch.int32)
-    live = torch.rand(n, generator=g, device=dev) < 0.9
-    passes = radix_case(u, live, 10, f"timed n={n}")
-    k_ms = time_ms(lambda: [topk.radix_histogram(u, live, p, s) for p, s in passes], 2, 10)
-    plain_ms = time_ms(lambda: [topk.plain_radix_histogram(u, live, p, s) for p, s in passes], 1, 3)
-    masked = []
-    for p, s in passes:
-        byte, in_prefix = topk._byte_and_match(u, live, p, s)
-        masked.append(torch.where(in_prefix, byte, 256))
-    lib_ms = time_ms(lambda: [torch.bincount(m, minlength=257) for m in masked], 2, 10)
-    in_bytes = n * 4 + n  # the keys and the live bytes, each read once
-    return {"name": "radix_histogram", "ms": k_ms, "plain": plain_ms, "lib": lib_ms,
-            "bound": (in_bytes + 256 * 8) / HBM_BYTES_PER_S * 1e3, "bytes": in_bytes,
-            "rows": n, "passes": len(passes)}
+    out = {}
+    for kind in ("prices", "random"):
+        u, live, k = radix_timed_inputs(dev, n, kind)
+        got = radix_case(u, live, k, f"timed {kind} n={n}")
+        k_ms = time_ms(lambda: topk.radix_topk_threshold(u, live, k), 2, 20)
+        plain_ms = time_ms(lambda: topk.plain_radix_select(u, live, k), 1, 3)
+        keys = torch.where(live, u.to(torch.int64) & 0xFFFFFFFF, torch.full_like(u, -1, dtype=torch.int64))
+        if int(torch.topk(keys, k).values[-1]) != int(got.threshold):
+            fail(f"radix select timed {kind}: torch.topk disagrees")
+        lib_ms = time_ms(lambda: torch.topk(keys, k).values[-1], 2, 10)
+        del keys
+        masked = []
+        thr = int(got.threshold)
+        for shift, bits in topk.DIGITS:
+            prefix = torch.tensor(thr & ((0xFFFFFFFF << (shift + bits)) & 0xFFFFFFFF), device=dev)
+            digit, in_prefix = topk._digit_and_match(u, live, prefix, shift)
+            masked.append((torch.where(in_prefix, digit, 1 << bits), (1 << bits) + 1))
+        bincount_ms = time_ms(lambda: [torch.bincount(m, minlength=b) for m, b in masked], 2, 10)
+        del masked
+        out[kind] = {"ms": k_ms, "plain": plain_ms, "lib": lib_ms, "bincount_ms": bincount_ms,
+                     "bound": radix_bound_ms(n), "bytes": n * 5, "rows": n, "k": k,
+                     "live_rows": int(live.sum())}
+    return out
 
 
 # --------------------------------------- timed shapes of kernels 1 and 2
@@ -806,10 +863,11 @@ def kernels_phase(engine, dev, n_rows):
     radix_edges(dev)
     build, probe = hash_timed(dev, n_rows // 8)
     radix = radix_timed(dev, n_rows)
+    prices = radix["prices"]
     six, twenty = k1["segment_reduce_6"], k1["segment_reduce_20"]
     q1, q6 = k2["q1"], k2["q6"]
     # the hash kernels do a few integer operations per slot visited and the
-    # histogram a few per row: far under the card's rate, so bytes bound them
+    # selection a few per row: far under the card's rate, so bytes bound them
     return [
         row("segment_reduce", "trino_tpu_torch/csrc/segreduce.cu",
             "trino_tpu/ops/pallas/segreduce.py:107", err1, six["ms"], six["plain"],
@@ -835,10 +893,12 @@ def kernels_phase(engine, dev, n_rows):
             "trino_tpu/ops/pallas/hashjoin.py:48", 0.0, probe["ms"], probe["plain"],
             probe["bound"], 0.0, probe["lib"], probe["bytes"], rows=probe["rows"],
             table_slots=probe["table_slots"], iterations=20),
-        row("radix_histogram", "trino_tpu_torch/csrc/topk.cu",
-            "trino_tpu/ops/pallas/topk.py:80", 0.0, radix["ms"], radix["plain"],
-            radix["bound"], 0.0, radix["lib"], radix["bytes"], rows=radix["rows"],
-            passes=radix["passes"]),
+        row("radix_select", "trino_tpu_torch/csrc/topk.cu",
+            "trino_tpu/ops/pallas/topk.py:80", 0.0, prices["ms"], prices["plain"],
+            prices["bound"], 0.0, prices["lib"], prices["bytes"], rows=prices["rows"],
+            k=prices["k"], library="torch.topk", bincount_ms=prices["bincount_ms"],
+            random_keys={key: radix["random"][key] for key in
+                         ("ms", "plain", "lib", "bincount_ms", "bound", "rows", "k")}),
     ]
 
 
@@ -919,7 +979,15 @@ def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
     lk, ln = li["l_orderkey"].astype(np.int64), li["l_linenumber"].astype(np.int64)
     top = np.lexsort((ln, lk, -price))[:10]
     topn = [(int(lk[i]), int(ln[i]), int(price[i]) / 100.0) for i in top]
-    return {"q01": q1, "q06": q6, "minmax": qmm, "q03": q3, "topn": topn}
+    # the NULL-date statements: no rows match the first two; the first ten
+    # customers' first order dates, NULL for a customer without orders
+    null_left = []
+    for c in np.sort(customer["c_custkey"])[:10]:
+        d = orders["o_orderdate"][orders["o_custkey"] == c]
+        null_left.append((int(c), (epoch + datetime.timedelta(days=int(d.min()))).isoformat()
+                          if len(d) else None))
+    return {"q01": q1, "q06": q6, "minmax": qmm, "q03": q3, "topn": topn,
+            "null_min": [(None,)], "null_max": [(None,)], "null_left": null_left}
 
 
 def rows_match(got, want, what: str) -> None:
@@ -958,7 +1026,7 @@ def check_main_path_calls(engine, lines) -> list:
     real = {
         "reduce": sr.fused_segment_reduce, "run": fused.run,
         "build": hashagg.build_hash_table, "probe": hashjoin.probe_hash_table,
-        "hist": topk.radix_histogram,
+        "select": topk.radix_select,
     }
     calls = []
     current = [""]
@@ -1017,21 +1085,25 @@ def check_main_path_calls(engine, lines) -> list:
         })
         return got
 
-    def checked_hist(u, live, prefix, shift):
-        got = hist_case(u, live, prefix, shift, f"main path {current[0]}",
-                        got=real["hist"](u, live, prefix, shift))
+    def checked_select(u, live, k, cap=None):
+        got = real["select"](u, live, k, cap)
+        radix_check(u, live, k, cap, got, f"main path {current[0]}")
         calls.append({
-            "kernel": "radix_histogram", "statement": current[0], "rows": int(u.shape[0]),
-            "shift": shift, "counted": int(got.sum()), "max_abs_err": 0.0,
-            "bound_ms": bound_ms(u.numel() * 5 + 256 * 8),
-            "ms": time_ms(lambda: real["hist"](u, live, prefix, shift), 1, 5),
-            "plain_ms": time_ms(lambda: topk.plain_radix_histogram(u, live, prefix, shift), 1, 3),
+            "kernel": "radix_select", "statement": current[0], "rows": int(u.shape[0]),
+            "live_rows": int(live.sum()), "k": k, "cap": cap, "required": int(got.required),
+            # the live rows at or above the first digit's bin fit the buffer:
+            # the later passes read only it
+            "buffered": int(got.hists[0][int(got.threshold) >> 21:].sum())
+            <= topk.buffer_entries(u.shape[0]),
+            "max_abs_err": 0.0, "bound_ms": radix_bound_ms(u.numel()),
+            "ms": time_ms(lambda: real["select"](u, live, k, cap), 1, 5),
+            "plain_ms": time_ms(lambda: topk.plain_radix_select(u, live, k, cap), 1, 3),
         })
         return got
 
     sr.fused_segment_reduce, fused.run = checked_reduce, checked_run
     hashagg.build_hash_table, hashjoin.probe_hash_table = checked_build, checked_probe
-    topk.radix_histogram = checked_hist
+    topk.radix_select = checked_select
     try:
         for variant, flag, name, sql, _, _ in lines:
             engine.execute(f"set session data_plane_kernels = {flag}")
@@ -1040,7 +1112,7 @@ def check_main_path_calls(engine, lines) -> list:
     finally:
         sr.fused_segment_reduce, fused.run = real["reduce"], real["run"]
         hashagg.build_hash_table, hashjoin.probe_hash_table = real["build"], real["probe"]
-        topk.radix_histogram = real["hist"]
+        topk.radix_select = real["select"]
     seen = {c["kernel"] for c in calls}
     if seen != set(KERNEL_NAMES):
         fail(f"main path calls reached {sorted(seen)}, not every kernel")
@@ -1081,7 +1153,7 @@ def device_busy(engine, sql, runs: int = 5) -> dict:
 
 
 KERNEL_NAMES = ("segment_reduce", "fused_pipeline", "hash_build", "hash_probe",
-                "radix_histogram")
+                "radix_select")
 
 
 def kernel_counts() -> dict:
@@ -1113,7 +1185,7 @@ def main_path_phase(engine, cpu_engine, scale):
           "lineitem_rows": int(len(li["l_quantity"])), "orders_rows": int(len(orders["o_orderkey"])),
           "customer_rows": int(len(customer["c_custkey"])), "generate_s": round(gen_s, 3)})
 
-    queries = {"q01": Q01, "q06": Q06, "minmax": QMM, "q03": Q03, "topn": TOPN}
+    queries = {"q01": Q01, "q06": Q06, "minmax": QMM, "q03": Q03, "topn": TOPN, **NULL_DATES}
     # (variant, data_plane_kernels, statements, dispatch the run must show:
     # (op, impl, at least this many times))
     variants = [
@@ -1125,6 +1197,8 @@ def main_path_phase(engine, cpu_engine, scale):
         ("sort", "false", ("q03",),
          [("join", "sort", 2), ("group_by", "sort", 1), ("segment_reduce", "cuda", 1)]),
         ("radix", "true", ("topn",), [("topn", "cuda", 1)]),
+        ("nulls", "true", tuple(NULL_DATES), []),
+        ("nulls_operators", "false", tuple(NULL_DATES), []),
     ]
     # every count to 0 just before the main path, read just after
     reset_kernel_counts()
@@ -1209,8 +1283,9 @@ def main_path_phase(engine, cpu_engine, scale):
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
-    their 64- and 128-bit vector loads) and of every generated kernel 2 of
-    this run, from cuobjdump."""
+    their 64- and 128-bit vector loads), of kernel 5 (each pass and the
+    candidate pass, with every load) and of every generated kernel 2 of this
+    run, from cuobjdump."""
     import re
     import shutil
 
@@ -1232,14 +1307,21 @@ def sass_report() -> dict:
                 continue
             ops = {}
             for m in op.finditer(block):
-                # of the loads, only the vector ones (.64 / .128) are listed
-                if m.group(1).startswith("LDG") and not re.search(r"\.(64|128)\b", m.group(1)):
+                # of the loads, only the vector ones (.64 / .128) are listed,
+                # except in kernel 5, whose every load is listed
+                if (m.group(1).startswith("LDG") and not label.startswith("radix_select")
+                        and not re.search(r"\.(64|128)\b", m.group(1))):
                     continue
                 ops[m.group(1)] = ops.get(m.group(1), 0) + 1
             out[label] = ops
         return out
 
     def label(nm):
+        if "radix_pass_kernel" in nm:
+            p = re.search(r"radix_pass_kernelILi(\d)E", nm)
+            return f"radix_select/pass{int(p.group(1)) + 1 if p else '?'}"
+        if "radix_rows_kernel" in nm:
+            return "radix_select/candidates"
         if "segreduce_kernel" in nm:
             return "segment_reduce/shared" if "ILb1E" in nm else "segment_reduce/global"
         for kernel, name in (("hash_build_kernel", "hash_build"),
@@ -1255,6 +1337,9 @@ def sass_report() -> dict:
     hash_rows = {k: v for k, v in rep.items() if k.startswith(("hash_build/", "hash_probe/"))}
     rep["hash_kernels_local_memory"] = sum(
         n for ops in hash_rows.values() for o, n in ops.items() if o.startswith(("LDL", "STL")))
+    rep["radix_kernels_local_memory"] = sum(
+        n for k, ops in rep.items() if k.startswith("radix_select/")
+        for o, n in ops.items() if o.startswith(("LDL", "STL")))
     return rep
 
 

@@ -224,3 +224,28 @@ def test_failed_hash_join_reruns_on_the_sort_path(engines, monkeypatch):
     events = [(op, impl) for op, impl, _ in kernels.events_for(port.plan(sql))]
     assert ("join", "sort") in events and ("join", "torch") not in events
     port.executor._learned_caps.clear()
+
+
+# DATE min/max over no rows: the empty group's sentinel sits in a NULL lane,
+# and the result surface must not decode it.  (The reference raises
+# OverflowError on these; the sqlite oracle decides.)
+NULL_DATE_STATEMENTS = {
+    "min_no_rows": "select min(l_shipdate) from lineitem where l_quantity < 0",
+    "max_no_rows": "select max(o_orderdate) from orders where o_orderkey < 0",
+    "left_join_min": "select c_custkey, min(o_orderdate) from customer left join orders "
+                     "on c_custkey = o_custkey group by c_custkey",
+}
+
+
+@pytest.mark.parametrize("kernels_on", [True, False], ids=["kernels_on", "kernels_off"])
+@pytest.mark.parametrize("name", sorted(NULL_DATE_STATEMENTS))
+def test_null_dates_equal_oracle(name, kernels_on, engines, oracle):
+    _, port = engines
+    sql = NULL_DATE_STATEMENTS[name]
+    port.execute(f"set session data_plane_kernels = {'true' if kernels_on else 'false'}")
+    try:
+        rows = port.query(sql)
+    finally:
+        port.execute("set session data_plane_kernels = true")
+    assert_rows_equal(rows, oracle.query(sql), ordered=False)
+    assert any(None in r for r in rows)

@@ -1,11 +1,12 @@
 """Radix-select TopN (kernel 5) of the port against the reference: the u32
-key map, the four-pass threshold (the reference's passes run through its
-segmented reduce's XLA fallback on the CPU), and top_n with the radix path
-forced (`topk.FORCE`, both packages) — rows and the candidate count
-`required`.  The lane-width case: an int64 key whose values fit int32 must
-give the candidate count the reference gives on the int32 lane it narrows
-such a column to.  The CUDA histogram kernel is held against its plain
-version on the card by chip_smoke.py."""
+key map, the threshold (the port's three digit passes against the
+reference's four byte passes, which run through its segmented reduce's XLA
+fallback on the CPU), and top_n with the radix path forced (`topk.FORCE`,
+both packages) — rows and the candidate count `required`.  The lane-width
+case: an int64 key whose values fit int32 must give the candidate count the
+reference gives on the int32 lane it narrows such a column to.  The CUDA
+kernels are held against their plain versions on the card by chip_smoke.py
+and by the `cuda`-marked test here."""
 
 import numpy as np
 import pytest
@@ -117,16 +118,106 @@ def test_top_n_keeps_every_live_row_when_k_exceeds_them(forced):
 
 
 def test_histogram_counts_only_the_prefix():
+    """The digits are 11, 11 and 10 bits: a pass counts the digit of the live
+    rows whose higher digits equal the prefix's."""
     from trino_tpu_torch.ops.cuda import topk
 
-    u = torch.tensor([0x01020304, 0x01020305, 0x01030304, 0x02020304, -1], dtype=torch.int32)
+    rows = [(3 << 21) | (5 << 10) | 7, (3 << 21) | (5 << 10) | 8, (3 << 21) | (6 << 10) | 7,
+            (4 << 21) | (5 << 10) | 7, -1]
+    u = torch.tensor(rows, dtype=torch.int64).to(torch.int32)
     live = torch.tensor([True, True, True, True, False])
-    h24 = topk.radix_histogram(u, live, torch.tensor(0), 24)
-    assert h24[1] == 3 and h24[2] == 1 and h24.sum() == 4
-    h8 = topk.radix_histogram(u, live, torch.tensor(0x01020000), 8)
-    assert h8[3] == 2 and h8.sum() == 2
-    with pytest.raises(ValueError, match="byte boundary"):
-        topk.radix_histogram(u, live, torch.tensor(0), 4)
+    h21 = topk.plain_radix_histogram(u, live, torch.tensor(0), 21)
+    assert h21.shape == (2048,) and h21[3] == 3 and h21[4] == 1 and h21.sum() == 4
+    h10 = topk.plain_radix_histogram(u, live, torch.tensor(3 << 21), 10)
+    assert h10.shape == (2048,) and h10[5] == 2 and h10[6] == 1 and h10.sum() == 3
+    h0 = topk.plain_radix_histogram(u, live, torch.tensor((3 << 21) | (5 << 10)), 0)
+    assert h0.shape == (1024,) and h0[7] == 1 and h0[8] == 1 and h0.sum() == 2
+    with pytest.raises(ValueError, match="digit boundary"):
+        topk.plain_radix_histogram(u, live, torch.tensor(0), 24)
+
+
+def _keys(kind: str, n: int, seed: int):
+    """u32 keys of one kind, and a live mask, made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) < 0.9
+    if kind == "random":
+        u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    elif kind == "prices":  # int32-mapped cent values: one top byte for every row
+        u = (rng.integers(90_000, 10_500_000, n) + 2**31).astype(np.uint32)
+    else:  # every key equal: the candidate buffer cannot hold the chosen bin
+        u = np.full(n, 0x80001234, np.uint32)
+    return u, live
+
+
+@pytest.mark.parametrize("kind", ["random", "prices", "all_equal"])
+@pytest.mark.parametrize("k", [1, 10, 4096])
+def test_plain_selection_matches_reference(kind, k):
+    """The three-pass selection gives the reference's threshold exactly, and
+    each pass's histogram is the plain count at the prefix it reached."""
+    import jax.numpy as jnp
+
+    from trino_tpu.ops.pallas import topk as ref
+    from trino_tpu_torch.ops.cuda import topk
+
+    u, live = _keys(kind, 20_000, 40 + k)
+    tu, tl = torch.from_numpy(u.view(np.int32)), torch.from_numpy(live)
+    sel = topk.plain_radix_select(tu, tl, k)
+    want = ref.radix_topk_threshold(jnp.asarray(u), jnp.asarray(live), k)
+    thr = int(sel.threshold)
+    assert thr == int(np.asarray(want))
+    assert thr == int(np.sort(u[live])[::-1][k - 1])
+    for (shift, bits), hist in zip(topk.DIGITS, sel.hists):
+        prefix = torch.tensor(thr & ((0xFFFFFFFF << (shift + bits)) & 0xFFFFFFFF))
+        assert hist.dtype == torch.int32 and hist.shape == (1 << bits,)
+        assert torch.equal(hist.to(torch.int64), topk.plain_radix_histogram(tu, tl, prefix, shift))
+    assert int(sel.hists[0].sum()) == int(live.sum())
+
+
+def test_plain_selection_k_above_the_live_rows_takes_the_smallest():
+    """The port's rule when K exceeds the live rows: the smallest live key,
+    through the lowest non-empty bin of every pass; every live row is then a
+    candidate, listed in row order."""
+    from trino_tpu_torch.ops.cuda import topk
+
+    for kind in ("random", "prices", "all_equal"):
+        u, live = _keys(kind, 5000, 7)
+        live &= np.random.default_rng(8).random(5000) < 0.05
+        tu, tl = torch.from_numpy(u.view(np.int32)), torch.from_numpy(live)
+        sel = topk.plain_radix_select(tu, tl, 4096, cap=512)
+        assert int(sel.threshold) == int(u[live].min())
+        assert int(sel.required) == int(live.sum())
+        assert sel.ids[: int(live.sum())].tolist() == np.nonzero(live)[0].tolist()
+
+
+def test_plain_candidates_are_the_first_cap_rows_in_row_order():
+    from trino_tpu_torch.ops.cuda import topk
+
+    u, live = _keys("prices", 20_000, 3)
+    tu, tl = torch.from_numpy(u.view(np.int32)), torch.from_numpy(live)
+    thr = int(np.sort(u[live])[::-1][299])
+    rows = np.nonzero(live & (u >= thr))[0]
+    for cap in (1024, 100):
+        ids, required = topk.plain_radix_candidates(tu, tl, torch.tensor(thr), cap)
+        assert int(required) == len(rows) == 300
+        m = min(cap, len(rows))
+        assert ids.shape == (cap,) and ids[:m].tolist() == rows[:m].tolist()
+
+
+def test_selection_of_an_offset_view_equals_a_copy():
+    """Keys and live mask that start inside their storage (the kernel's
+    unaligned head rows) give what a contiguous copy gives."""
+    from trino_tpu_torch.ops.cuda import topk
+
+    u, live = _keys("random", 10_007, 11)
+    tu, tl = torch.from_numpy(u.view(np.int32)), torch.from_numpy(live)
+    for a, b in ((1, 3), (3, 0), (2, 5)):
+        n = 10_000
+        vu, vl = tu[a:a + n], tl[b:b + n]
+        got = topk.radix_select(vu, vl, 10, cap=64)
+        want = topk.radix_select(vu.clone(), vl.clone(), 10, cap=64)
+        assert vu.storage_offset() == a and int(got.threshold) == int(want.threshold)
+        assert int(got.required) == int(want.required)
+        assert torch.equal(got.ids, want.ids)
 
 
 def _topn_case(kind, n=3000, seed=3):
@@ -206,16 +297,33 @@ def test_top_n_declines_to_sort_below_the_radix_size():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_the_card():
+    """Every pass's histogram, the threshold, the candidates' ids and
+    `required` of the card's selection equal the plain version's — with the
+    buffer (random keys, prices at K = 10), past it (prices at K = 4096 over
+    100,003 rows, every key equal) and on offset views."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run chip_smoke.py on the card)")
     from trino_tpu_torch.ops.cuda import topk
 
-    rng = np.random.default_rng(9)
     dev = torch.device("cuda")
-    u = torch.from_numpy(rng.integers(0, 2**32, 1000003, dtype=np.uint64)
-                         .astype(np.uint32).view(np.int32)).to(dev)
-    live = torch.from_numpy(rng.random(1000003) < 0.9).to(dev)
-    prefix = torch.tensor(int(u[0]) & 0xFFFFFFFF, dtype=torch.int64, device=dev)
-    for shift in (24, 16, 8, 0):
-        assert torch.equal(topk.radix_histogram(u, live, prefix, shift),
-                           topk.plain_radix_histogram(u, live, prefix, shift))
+    for kind in ("random", "prices", "all_equal"):
+        u, live = _keys(kind, 100_003, 9)
+        tu = torch.from_numpy(u.view(np.int32)).to(dev)
+        tl = torch.from_numpy(live).to(dev)
+        for k, (a, b) in ((1, (0, 0)), (10, (0, 0)), (4096, (0, 0)), (10, (1, 3)), (10, (3, 2))):
+            vu, vl = tu[a:a + 100_000], tl[b:b + 100_000]
+            got = topk.radix_select(vu, vl, k, cap=16384)
+            want = topk.plain_radix_select(vu, vl, k, cap=16384)
+            assert int(got.threshold) == int(want.threshold)
+            for g, w in zip(got.hists, want.hists):
+                assert torch.equal(g, w)
+            req = int(want.required)
+            assert int(got.required) == req
+            m = min(req, 16384)
+            if req <= 16384:
+                assert torch.equal(got.ids[:m], want.ids[:m])
+            else:  # past the cap: some `cap` candidates, ascending
+                ids = got.ids[:m]
+                assert bool((ids[1:] > ids[:-1]).all())
+                assert bool(vl[ids].all())
+                assert bool(((vu[ids].to(torch.int64) & 0xFFFFFFFF) >= int(got.threshold)).all())

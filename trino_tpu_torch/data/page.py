@@ -365,7 +365,13 @@ class Page:
                 vals = col.dictionary.values[np.clip(data, 0, max(len(col.dictionary) - 1, 0))] if len(idx) else np.array([], dtype=object)
                 pys.append(vals)
             elif col.type == DATE:
-                pys.append(np.array([days_to_date(d).isoformat() for d in data], dtype=object))
+                # only valid rows decode: a NULL's lane may hold an empty
+                # group's min/max sentinel, which is no date
+                pys.append(np.array(
+                    [days_to_date(d).isoformat() if valid is None or valid[i] else None
+                     for i, d in enumerate(data)],
+                    dtype=object,
+                ))
             elif col.type == BOOLEAN:
                 pys.append(data.astype(bool))
             elif col.type.is_floating:

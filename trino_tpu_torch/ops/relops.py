@@ -1024,22 +1024,22 @@ def top_n(cols, live, keys, specs, count: int, cap: Optional[int] = None):
     """TopN.  Returns (cols, live, required).
 
     Radix-select path (large inputs): find the exact K-th threshold of the
-    leading key in four histogram passes (kernel 5, ops/cuda/topk.py),
-    compact the <= `cap` candidate rows, and sort only those — no sort of
-    the relation.  `required` is the candidate count for the executor's
-    capacity retry; the sort path reports 0 (never retries).
+    leading key in three digit passes and list the <= `cap` candidate rows
+    (kernel 5, ops/cuda/topk.py `radix_select`), then sort only those — no
+    sort of the relation.  `required` is the candidate count for the
+    executor's capacity retry; the sort path reports 0 (never retries).
 
     The leading key maps to a monotone u32.  An int64 key whose live values
     fit int32 maps as int32 would (the reference narrows such a lane at
     upload; the port keeps 64-bit lanes, and their top 32 bits would put
     every row into one bin)."""
-    from .cuda.topk import radix_topk_supported, radix_topk_threshold, sortable_u32
+    from .cuda.topk import radix_select, radix_topk_supported, sortable_u32
     from .kernels import impl_for, record_dispatch
 
     n = live.shape[0]
     k = min(count, n)
     if not (
-        cap is not None and cap >= count and keys
+        cap is not None and cap >= count and keys and n > 0
         and keys[0].data2 is None  # radix threshold is 32-bit single-lane
         and radix_topk_supported(n, count)
     ):
@@ -1058,16 +1058,8 @@ def top_n(cols, live, keys, specs, count: int, cap: Optional[int] = None):
     u = sortable_u32(key, descending=spec.ascending, narrow=narrow)  # first rows == largest u
     null_u = -1 if spec.nulls_first else 0  # the u32 bits 0xFFFFFFFF or 0
     u = torch.where(valid, u, torch.full_like(u, null_u))
-    thresh = radix_topk_threshold(u, live, count)
-    cand = live & ((u.to(torch.int64) & _M32) >= thresh)
-    required = cand.sum(dtype=torch.int64)
-    # compact candidate row ids into the static buffer (slot `cap` takes
-    # the non-candidates and is dropped)
-    pos = torch.cumsum(cand.to(torch.int64), 0) - 1
-    scatter_to = torch.where(cand, pos, torch.full_like(pos, cap)).clamp(max=cap)
-    idx_buf = torch.zeros((cap + 1,), dtype=torch.int64, device=dev).scatter_(
-        0, scatter_to, torch.arange(n, dtype=torch.int64, device=dev)
-    )[:cap]
+    sel = radix_select(u, live, count, cap)
+    idx_buf, required = sel.ids, sel.required
     lane_live = torch.arange(cap, dtype=torch.int64, device=dev) < torch.clamp(required, max=cap)
     sub_cols = _gather_cols(cols, idx_buf)
     sub_keys = _gather_cols(keys, idx_buf)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels 1-4 of a checkout of the port at the shapes PERF.md tracks.
+"""Time kernels 1-5 of a checkout of the port at the shapes PERF.md tracks.
 
     python3 trino_tpu_torch/tools/time_kernels.py [--package-root DIR] [--rows N]
         [--iters K]
@@ -7,8 +7,9 @@
 `trino_tpu_torch` is imported from DIR (default: the checkout holding this
 file), and only through calls every version of the port has (`Engine.plan`,
 `fused.plan_pipeline`, `fused.run`, `segreduce.fused_segment_reduce`,
-`hashagg.build_hash_table`, `hashjoin.probe_hash_table`), so the same script
-times an older checkout's kernels beside this one's.  Run the two in one
+`hashagg.build_hash_table`, `hashjoin.probe_hash_table`,
+`topk.radix_topk_threshold`, `topk.sortable_u32`), so the same script times
+an older checkout's kernels beside this one's.  Run the two in one
 machine, in turns (old, new, new, old): two calls may land on two cards.
 Shapes, all made on the card from a seed: at N rows (64 Mi by default),
 kernel 2 on the fused recipes of TPC-H Q1 and Q6 and of Q1 grouped by four
@@ -22,7 +23,12 @@ then probe of the table built) at two shapes: chip_smoke.py's timed shape
 default N; probe rows half hits) and join #5 of TPC-H Q3 at SF 1 (6,002,367
 lineitem rows, order keys in runs of 1-7, live an order at a time, ~827 K
 distinct live keys, cap = rows, 2^24 slots; probed by the 1.5 M order keys,
-half of them live).  Each line: the kernel's median time over K launches
+half of them live).  Kernel 5 first, as the whole selection
+`radix_topk_threshold(u, live, k)` at three shapes: chip_smoke.py's two timed
+shapes (N int32-mapped prices, 90 % live, K = 10; N random u32 keys, 90 %
+live, K = 4096) and the topn statement's (6,002,367 rows of
+`lineitem_columns`' l_extendedprice mapped as top_n maps it, all live,
+K = 10).  Each line: the kernel's median time over K launches
 (CUDA events, chip_smoke.py's `time_ms`), the first call's time (with a
 generated kernel's compile), the bytes bound on an H100 (chip_smoke.py's
 rate), and the card's name and power limit.  Needs a CUDA card; exits 2
@@ -207,6 +213,21 @@ def hash_shapes(smoke, dev, n_rows: int) -> dict:
     return shapes
 
 
+def radix_shapes(smoke, dev, n_rows: int) -> dict:
+    """name -> (u, live, k) of kernel 5's three timed shapes."""
+    import torch
+
+    from trino_tpu_torch.ops.cuda import topk
+
+    shapes = {kind: smoke.radix_timed_inputs(dev, n_rows, kind) for kind in ("prices", "random")}
+    n = 6_002_367
+    price = lineitem_columns(n, dev)["l_extendedprice"]
+    # top_n's map of a descending int64 key whose values fit int32
+    u = topk.sortable_u32(price, False, narrow=torch.tensor(True, device=dev))
+    shapes["topn"] = (u, torch.ones(n, dtype=torch.bool, device=dev), 10)
+    return shapes
+
+
 def hash_bytes(smoke, words, live, table_slots: int) -> int:
     """The work of a build or probe as chip_smoke.py bounds it: the words and
     the live byte in, the id out, and past L2 one sector per distinct start
@@ -237,7 +258,7 @@ def main(argv=None) -> int:
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
     from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin
+    from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
     from trino_tpu_torch.ops.cuda import segreduce as sr
     from trino_tpu_torch.runtime.engine import Engine
 
@@ -257,6 +278,14 @@ def main(argv=None) -> int:
         bound = n_bytes / smoke.HBM_BYTES_PER_S * 1e3
         print(json.dumps({**base, "shape": name, "ms": ms, "first_call_ms": first,
                           "bound_ms": bound, "share_of_bound": bound / ms, **extra}), flush=True)
+
+    for shape, (u, live, k) in radix_shapes(smoke, dev, args.rows).items():
+        n = u.shape[0]
+        emit(f"radix_select_{shape}", lambda: topk.radix_topk_threshold(u, live, k),
+             n * 5 + 256 * 8, rows=n, live_rows=int(live.sum()), k=k,
+             threshold=int(topk.radix_topk_threshold(u, live, k)))
+        del u, live
+    torch.cuda.empty_cache()
 
     for shape, (words, live, cap, pwords, plive) in hash_shapes(smoke, dev, args.rows).items():
         T = hashagg.table_size(cap)
