@@ -17,9 +17,15 @@ build and probe (and through the sort paths with kernels off), the ten most
 expensive line items through radix select, and three statements whose DATE
 min/max is NULL (both kernel settings) — checking every result against an
 independent numpy reference and against the same query on
-`Engine(device="cpu")`.  Each phase prints one
-JSON line; the last line of standard output is `{"ok": true, "device":
-{...}}`.  Any failed build, launch or comparison ends the run with a
+`Engine(device="cpu")`.  The `tpch` phase then runs all 22 TPC-H queries
+(their SQL read as text from tests/tpch_queries.py) and one GROUP BY over
+lineitem with the variance / correlation family, bool_and, a percentile, two
+count(DISTINCT) and approx_distinct, in the default setting and (Q18, the ten
+queries that need CASE / IN / LIKE / substring / DISTINCT, and that GROUP BY)
+with data_plane_kernels = false; every statement against the CPU engine,
+Q18, q12, q14, q16, q22 and the GROUP BY against numpy references.  Each
+phase prints one JSON line; the last line of standard output is `{"ok":
+true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
 exits 2.
 
@@ -990,6 +996,200 @@ def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
             "null_min": [(None,)], "null_max": [(None,)], "null_left": null_left}
 
 
+# ------------------------------------ the 22 TPC-H queries: numpy references
+
+TPCH_FILE = Path(__file__).resolve().parent / "tests" / "tpch_queries.py"
+# the ten queries that need CASE, IN, LIKE, substring or count(DISTINCT)
+NEW_QUERIES = ("q02", "q08", "q09", "q12", "q13", "q14", "q16", "q19", "q20", "q22")
+# the variance and correlation family, bool_and, a percentile, two DISTINCT
+# counts (two sorts) and a HyperLogLog in one grouped node.  bool_and's
+# predicate is true in every row of the N groups and mixed in the A and R
+# groups, so a bool_and built as max (or as a constant) gives other rows.
+AGG = (
+    "select l_returnflag, l_linestatus, stddev(l_quantity), var_pop(l_extendedprice), "
+    "corr(l_quantity, l_extendedprice), bool_and(l_shipdate > date '1995-05-01'), "
+    "approx_percentile(l_extendedprice, 0.5), count(distinct l_partkey), "
+    "count(distinct l_suppkey), approx_distinct(l_orderkey) "
+    "from lineitem group by l_returnflag, l_linestatus order by 1, 2"
+)
+AGG_MOMENTS = (2, 3, 4)  # the AGG columns whose tolerance is the moment bound
+HLL_ERROR = 1.04 / 4096 ** 0.5  # the sketch's standard error (2^12 registers)
+
+
+def tpch_queries() -> tuple:
+    """(QUERIES, ORDERED) of tests/tpch_queries.py, read without importing
+    the tests package."""
+    ns: dict = {}
+    exec(compile(TPCH_FILE.read_text(), str(TPCH_FILE), "exec"), ns)
+    return ns["QUERIES"], ns["ORDERED"]
+
+
+def _days(y: int, m: int, d: int) -> int:
+    import datetime
+
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def _iso(days: int) -> str:
+    import datetime
+
+    return (datetime.date(1970, 1, 1) + datetime.timedelta(days=int(days))).isoformat()
+
+
+def _strs(a) -> np.ndarray:
+    return np.asarray(a, dtype=object).astype(str)
+
+
+def q18_reference(li: dict, orders: dict, customer: dict, threshold: int = 300) -> list:
+    """Orders whose lines hold more than `threshold` units, with their
+    customer; sorted by (totalprice desc, orderdate), at most 100."""
+    lk = li["l_orderkey"].astype(np.int64)
+    keys, inv = np.unique(lk, return_inverse=True)
+    qty = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(qty, inv, li["l_quantity"].astype(np.int64))
+    big = qty > threshold * 100
+    big_keys, big_qty = keys[big], qty[big]
+    at = np.searchsorted(orders["o_orderkey"], big_keys)
+    cust = orders["o_custkey"][at]
+    cat = np.searchsorted(customer["c_custkey"], cust)
+    price = orders["o_totalprice"][at].astype(np.int64)
+    date = orders["o_orderdate"][at].astype(np.int64)
+    order = np.lexsort((date, -price))[:100]
+    names = _strs(customer["c_name"])
+    return [
+        (str(names[cat[i]]), int(cust[i]), int(big_keys[i]), _iso(date[i]),
+         int(price[i]) / 100.0, dec(int(big_qty[i]), 2))
+        for i in order
+    ]
+
+
+def q12_reference(li: dict, orders: dict) -> list:
+    mode = _strs(li["l_shipmode"])
+    ship, commit, receipt = (li[c].astype(np.int64) for c in
+                             ("l_shipdate", "l_commitdate", "l_receiptdate"))
+    m = (np.isin(mode, ["MAIL", "SHIP"]) & (commit < receipt) & (ship < commit)
+         & (receipt >= _days(1994, 1, 1)) & (receipt < _days(1995, 1, 1)))
+    at = np.searchsorted(orders["o_orderkey"], li["l_orderkey"][m])
+    high = np.isin(_strs(orders["o_orderpriority"])[at], ["1-URGENT", "2-HIGH"])
+    out = []
+    for sm in sorted(set(mode[m])):
+        k = mode[m] == sm
+        out.append((sm, int((high & k).sum()), int((~high & k).sum())))
+    return out
+
+
+def q14_reference(li: dict, part: dict) -> list:
+    """Exact in python ints until the final division."""
+    ship = li["l_shipdate"].astype(np.int64)
+    m = (ship >= _days(1995, 9, 1)) & (ship < _days(1995, 10, 1))
+    rev = li["l_extendedprice"][m].astype(np.int64) * (100 - li["l_discount"][m].astype(np.int64))
+    at = np.searchsorted(part["p_partkey"], li["l_partkey"][m])
+    promo = np.char.startswith(_strs(part["p_type"])[at], "PROMO")
+    return [(100 * exact_sum(rev[promo]) / exact_sum(rev),)]
+
+
+def q16_reference(partsupp: dict, part: dict, supplier: dict) -> list:
+    import re
+
+    rx = re.compile("Customer.*Complaints", re.DOTALL)
+    bad = supplier["s_suppkey"][[rx.search(c) is not None for c in _strs(supplier["s_comment"])]]
+    at = np.searchsorted(part["p_partkey"], partsupp["ps_partkey"])
+    brand = _strs(part["p_brand"])[at]
+    ptype = _strs(part["p_type"])[at]
+    size = part["p_size"][at].astype(np.int64)
+    m = ((brand != "Brand#45") & ~np.char.startswith(ptype, "MEDIUM POLISHED")
+         & np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9])
+         & ~np.isin(partsupp["ps_suppkey"], bad))
+    groups: dict = {}
+    for b, t, z, sk in zip(brand[m], ptype[m], size[m], partsupp["ps_suppkey"][m]):
+        groups.setdefault((str(b), str(t), int(z)), set()).add(int(sk))
+    rows = [(b, t, z, len(v)) for (b, t, z), v in groups.items()]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def q22_reference(customer: dict, orders: dict) -> list:
+    code = np.asarray([p[:2] for p in _strs(customer["c_phone"])])
+    bal = customer["c_acctbal"].astype(np.int64)
+    in_set = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    pos = in_set & (bal > 0)
+    total, count = exact_sum(bal[pos]), int(pos.sum())
+    m = in_set & (bal * count > total) & ~np.isin(customer["c_custkey"], orders["o_custkey"])
+    return [(c, int((code[m] == c).sum()), dec(exact_sum(bal[m][code[m] == c]), 2))
+            for c in sorted(set(code[m]))]
+
+
+def moment_tolerance(*cols) -> float:
+    """Relative tolerance of a variance or correlation assembled from sums
+    (ss/n - mean²): each sum of n terms may differ by 2·n·2^-53 of its own
+    size between two addition orders, and the subtraction magnifies that by
+    sum(x²)/(n·var(x)).  The bound is that product for the worst column."""
+    worst = 0.0
+    for x in cols:
+        n, var = len(x), float(np.var(x))
+        if n and var > 0:
+            worst = max(worst, float(np.dot(x, x)) / (n * var) * 2 * n * 2.0**-53)
+    return 4 * worst + 1e-12
+
+
+def agg_reference(li: dict) -> tuple:
+    """(rows, tolerance per row) of the AGG statement; approx_distinct's
+    column holds the EXACT distinct count (the sketch is held within 4
+    standard errors of it)."""
+    rf, ls = _strs(li["l_returnflag"]), _strs(li["l_linestatus"])
+    qty = li["l_quantity"].astype(np.int64) / 100.0
+    price_c = li["l_extendedprice"].astype(np.int64)
+    price = price_c / 100.0
+    rows, tols = [], []
+    for f in sorted(set(rf)):
+        for s in sorted(set(ls[rf == f])):
+            m = (rf == f) & (ls == s)
+            x, p = qty[m], price[m]
+            c = int(m.sum())
+            srt = np.sort(price_c[m])
+            rows.append((
+                str(f), str(s), float(np.std(x, ddof=1)), float(np.var(p)),
+                float(np.corrcoef(x, p)[0, 1]),
+                bool(np.all(li["l_shipdate"][m] > _days(1995, 5, 1))),
+                int(srt[int(np.floor(0.5 * (c - 1) + 0.5))]) / 100.0,
+                len(np.unique(li["l_partkey"][m])), len(np.unique(li["l_suppkey"][m])),
+                len(np.unique(li["l_orderkey"][m])),
+            ))
+            tols.append(moment_tolerance(x, p))
+    return rows, tols
+
+
+def tpch_reference_rows(t: dict) -> dict:
+    li, orders, customer = t["lineitem"], t["orders"], t["customer"]
+    return {
+        "q18": q18_reference(li, orders, customer),
+        "q12": q12_reference(li, orders),
+        "q14": q14_reference(li, t["part"]),
+        "q16": q16_reference(t["partsupp"], t["part"], t["supplier"]),
+        "q22": q22_reference(customer, orders),
+    }
+
+
+def agg_rows_match(got, want, tols, what: str, hll_ref=None) -> None:
+    """AGG rows: the moment columns within their derived tolerance; the
+    HyperLogLog column within 4 standard errors of the exact count (and, with
+    `hll_ref`, equal to that engine's estimate); every other column exact."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} rows, expected {len(want)}")
+    for r, (g, w, tol) in enumerate(zip(got, want, tols)):
+        for c, (x, y) in enumerate(zip(g, w)):
+            if c in AGG_MOMENTS:
+                if x is None or abs(x - y) > tol * max(abs(y), 1e-300):
+                    fail(f"{what}: row {r} col {c}: {x!r} vs {y!r} (rel tolerance {tol:.3g})")
+            elif c == len(g) - 1 and hll_ref is None:
+                if abs(x - y) > 4 * HLL_ERROR * y:
+                    fail(f"{what}: row {r}: approx_distinct {x} vs exact {y}: past 4 errors")
+            elif c == len(g) - 1:
+                if x != hll_ref[r][c]:
+                    fail(f"{what}: row {r}: approx_distinct {x} != {hll_ref[r][c]}")
+            elif x != y:
+                fail(f"{what}: row {r} col {c}: {x!r} != {y!r}")
+
+
 def rows_match(got, want, what: str) -> None:
     if len(got) != len(want):
         fail(f"{what}: {len(got)} rows, expected {len(want)}")
@@ -1004,7 +1204,7 @@ def rows_match(got, want, what: str) -> None:
                 fail(f"{what}: row {r} col {c}: {x!r} != {y!r}")
 
 
-def check_main_path_calls(engine, lines) -> list:
+def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
     """Run the main path's statements once more with every kernel wrapper
     shadowed: each call the engine makes is held against the kernel's plain
     version on the very tensors the engine passed, and timed there.  (These
@@ -1114,7 +1314,7 @@ def check_main_path_calls(engine, lines) -> list:
         hashagg.build_hash_table, hashjoin.probe_hash_table = real["build"], real["probe"]
         topk.radix_select = real["select"]
     seen = {c["kernel"] for c in calls}
-    if seen != set(KERNEL_NAMES):
+    if require_all and seen != set(KERNEL_NAMES):
         fail(f"main path calls reached {sorted(seen)}, not every kernel")
     return calls
 
@@ -1172,9 +1372,119 @@ def reset_kernel_counts() -> None:
         mod.reset_launches()
 
 
+def unordered(rows) -> list:
+    """Rows in a canonical order for statements without a total order (floats
+    rounded in the key only, so two engines' last bits cannot reorder ties)."""
+    def key(r):
+        return tuple((0, round(v, 6)) if isinstance(v, float) else (1, repr(v)) for v in r)
+    return sorted(rows, key=key)
+
+
+def rows_agree(got, want, name, what, ordered=None, agg_tols=None, hll_ref=None) -> None:
+    """`got` against `want` as the statement requires: AGG by agg_rows_match,
+    a statement without a total order in canonical order, the rest row by
+    row."""
+    if name == "agg":
+        agg_rows_match(got, want, agg_tols, what, hll_ref=hll_ref)
+    elif ordered is not None and not ordered.get(name, True):
+        rows_match(unordered(got), unordered(want), what)
+    else:
+        rows_match(got, want, what)
+
+
+def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
+                  ordered=None, agg_tols=None) -> None:
+    """For each statement the main path ran: the same statement on the CPU
+    engine (held against the numpy reference where there is one, and the
+    card's rows against it), `runs` warm runs, `runs` runs layer by layer, a
+    profiled set of `runs`; one JSON line each."""
+    for variant, flag, name, sql, cold_ms, events, retries in lines:
+        cpu_engine.execute(f"set session data_plane_kernels = {flag}")
+        engine.execute(f"set session data_plane_kernels = {flag}")
+        t0 = time.perf_counter()
+        cpu_rows = cpu_engine.query(sql)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        rows = engine.query(sql)
+        what = f"{name}/{variant}"
+        if name in want:
+            rows_agree(cpu_rows, want[name], name, f"{what} on cpu vs numpy reference",
+                       ordered, agg_tols)
+        rows_agree(rows, cpu_rows, name, f"{what} cuda vs cpu engine", ordered, agg_tols,
+                   hll_ref=cpu_rows)
+        warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.query(sql)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(runs):  # the same statement, layer by layer
+            t0 = time.perf_counter()
+            plan = engine.plan(sql)
+            t1 = time.perf_counter()
+            page = engine.executor.execute(plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            page.to_pylist()
+            t3 = time.perf_counter()
+            plan_ms.append((t1 - t0) * 1e3)
+            exec_ms.append((t2 - t1) * 1e3)
+            fetch_ms.append((t3 - t2) * 1e3)
+        busy = device_busy(engine, sql, runs)
+        warm_ms = statistics.median(warm)
+        idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
+        emit({
+            "phase": phase, "query": name, "variant": variant,
+            "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
+            "cold_ms": cold_ms, "warm_ms": warm_ms, "device_idle_share": idle, **busy,
+            "plan_ms": statistics.median(plan_ms), "execute_ms": statistics.median(exec_ms),
+            "fetch_ms": statistics.median(fetch_ms), "cpu_engine_ms": cpu_ms,
+            "first_run_retries": retries,
+            "launches": launches[what],
+            "dispatch": [[op, impl] for op, impl, _ in events],
+        })
+
+
+def run_lines(engine, queries, variants, want, ordered=None, agg_tols=None):
+    """Run each variant's statements once on the card (the path whose
+    launches are counted): rows against the numpy reference where there is
+    one, the dispatch events each run must show, launches per statement.
+    Returns (lines, launches)."""
+    from trino_tpu_torch.ops import kernels
+
+    launches = {}
+    lines = []
+    for variant, flag, names, must in variants:
+        engine.execute(f"set session data_plane_kernels = {flag}")
+        for name in names:
+            sql = queries[name]
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = engine.query(sql)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            retries = list(engine.executor.last_retries)
+            after = kernel_counts()
+            what = f"{name}/{variant}"
+            if name in want:
+                rows_agree(rows, want[name], name, f"{what} on cuda vs numpy reference",
+                           ordered, agg_tols)
+            events = kernels.events_for(engine.plan(sql))
+            for op, impl, times in must:
+                seen = sum(1 for e in events if e[0] == op and e[1] == impl)
+                if seen < times:
+                    fail(f"{what}: dispatch events {events} show {op}/{impl} "
+                         f"{seen} times, expected {times}")
+            if name == "topn" and retries:
+                fail(f"topn/{variant}: the first run re-ran for {retries}")
+            launches[what] = {k: after[k] - before[k] for k in KERNEL_NAMES}
+            lines.append((variant, flag, name, sql, cold_ms, events, retries))
+    return lines, launches
+
+
 def main_path_phase(engine, cpu_engine, scale):
     from trino_tpu_torch.connectors.tpch import tpch_data
-    from trino_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     li = tpch_data("lineitem", scale)
@@ -1202,31 +1512,7 @@ def main_path_phase(engine, cpu_engine, scale):
     ]
     # every count to 0 just before the main path, read just after
     reset_kernel_counts()
-    launches = {}
-    lines = []
-    for variant, flag, names, must in variants:
-        engine.execute(f"set session data_plane_kernels = {flag}")
-        for name in names:
-            sql = queries[name]
-            before = kernel_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rows = engine.query(sql)
-            torch.cuda.synchronize()
-            cold_ms = (time.perf_counter() - t0) * 1e3
-            retries = list(engine.executor.last_retries)
-            after = kernel_counts()
-            rows_match(rows, want[name], f"{name}/{variant} on cuda vs numpy reference")
-            events = kernels.events_for(engine.plan(sql))
-            for op, impl, times in must:
-                seen = sum(1 for e in events if e[0] == op and e[1] == impl)
-                if seen < times:
-                    fail(f"{name}/{variant}: dispatch events {events} show {op}/{impl} "
-                         f"{seen} times, expected {times}")
-            if name == "topn" and retries:
-                fail(f"topn/{variant}: the first run re-ran for {retries}")
-            launches[f"{name}/{variant}"] = {k: after[k] - before[k] for k in KERNEL_NAMES}
-            lines.append((variant, flag, name, sql, cold_ms, events, retries))
+    lines, launches = run_lines(engine, queries, variants, want)
     main_counts = kernel_counts()
     for k in KERNEL_NAMES:
         if main_counts[k] < 1:
@@ -1237,47 +1523,57 @@ def main_path_phase(engine, cpu_engine, scale):
           "calls": check_main_path_calls(engine, [ln[:6] for ln in lines])})
 
     # the same statements on the CPU engine, and warm timings
-    for variant, flag, name, sql, cold_ms, events, retries in lines:
-        cpu_engine.execute(f"set session data_plane_kernels = {flag}")
-        engine.execute(f"set session data_plane_kernels = {flag}")
-        t0 = time.perf_counter()
-        cpu_rows = cpu_engine.query(sql)
-        cpu_ms = (time.perf_counter() - t0) * 1e3
-        rows_match(cpu_rows, want[name], f"{name}/{variant} on cpu vs numpy reference")
-        rows_match(engine.query(sql), cpu_rows, f"{name}/{variant} cuda vs cpu engine")
-        warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine.query(sql)
-            torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t0) * 1e3)
-        for _ in range(5):  # the same statement, layer by layer
-            t0 = time.perf_counter()
-            plan = engine.plan(sql)
-            t1 = time.perf_counter()
-            page = engine.executor.execute(plan)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            page.to_pylist()
-            t3 = time.perf_counter()
-            plan_ms.append((t1 - t0) * 1e3)
-            exec_ms.append((t2 - t1) * 1e3)
-            fetch_ms.append((t3 - t2) * 1e3)
-        busy = device_busy(engine, sql)
-        warm_ms = statistics.median(warm)
-        idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
-        emit({
-            "phase": "main_path", "query": name, "variant": variant,
-            "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
-            "cold_ms": cold_ms, "warm_ms": warm_ms, "device_idle_share": idle, **busy,
-            "plan_ms": statistics.median(plan_ms), "execute_ms": statistics.median(exec_ms),
-            "fetch_ms": statistics.median(fetch_ms), "cpu_engine_ms": cpu_ms,
-            "first_run_retries": retries,
-            "launches": launches[f"{name}/{variant}"],
-            "dispatch": [[op, impl] for op, impl, _ in events],
-        })
+    measure_lines(engine, cpu_engine, lines, want, launches, "main_path", 5)
     return main_counts
+
+
+def tpch_phase(engine, cpu_engine, scale):
+    """The 22 TPC-H queries and the AGG statement through `Engine.query` in
+    the default kernel setting (`tpch`), and Q18, NEW_QUERIES and AGG with
+    data_plane_kernels = false
+    (`tpch_operators`); Q18, q12, q14, q16, q22 and AGG against numpy, every
+    statement against the CPU engine.  Returns the path's launch counts."""
+    from trino_tpu_torch.connectors.tpch import tpch_data
+
+    queries, ordered = tpch_queries()
+    t0 = time.perf_counter()
+    tables = {n: tpch_data(n, scale) for n in
+              ("lineitem", "orders", "customer", "part", "partsupp", "supplier")}
+    gen_s = time.perf_counter() - t0
+    want = tpch_reference_rows(tables)
+    want["agg"], agg_tols = agg_reference(tables["lineitem"])
+    emit({"phase": "tpch", "step": "data", "scale": scale, "generate_s": round(gen_s, 3),
+          "rows": {n: int(len(next(iter(t.values())))) for n, t in tables.items()}})
+    del tables
+    all22 = tuple(sorted(queries))
+    queries = dict(queries, agg=AGG)
+    q16 = [("segment_reduce", "cuda", 1)]
+    agg = [("group_by", "sort", 1), ("segment_reduce", "cuda", 1)]
+    paths = (
+        # Q18: the 1.5 M-group GROUP BY l_orderkey through the hash table,
+        # the IN semi-join through the probe
+        ("tpch", "true", all22 + ("agg",),
+         {"q18": [("group_by", "cuda", 1), ("join", "cuda", 1)], "q16": q16, "agg": agg}),
+        ("tpch_operators", "false", ("q18",) + NEW_QUERIES + ("agg",), {"q16": q16, "agg": agg}),
+    )
+    # one variant entry per statement: the dispatch each must show differs
+    variants = [(variant, flag, (name,), must.get(name, []))
+                for variant, flag, names, must in paths for name in names]
+    # every count to 0 just before the path, read just after
+    reset_kernel_counts()
+    lines, launches = run_lines(engine, queries, variants, want, ordered, agg_tols)
+    counts = kernel_counts()
+    for k in ("segment_reduce", "hash_build", "hash_probe"):
+        if counts[k] < 1:
+            fail(f"tpch path never launched {k}: {counts}")
+    # Q18's hash build (6 M rows into ~1.5 M groups) and the kernel-1 call of
+    # AGG that carries the DISTINCT counts and the moment sums, held against
+    # their plain versions on the engine's own tensors
+    emit({"phase": "tpch", "step": "kernel_calls", "calls": check_main_path_calls(
+        engine, [ln[:6] for ln in lines if ln[0] == "tpch" and ln[2] in ("q18", "agg")],
+        require_all=False)})
+    measure_lines(engine, cpu_engine, lines, want, launches, "tpch", 3, ordered, agg_tols)
+    return counts
 
 
 def sass_report() -> dict:
@@ -1349,6 +1645,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=64 * 1024 * 1024)
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -1389,12 +1686,15 @@ def main(argv=None) -> int:
         r["card"] = smi_line
     torch.cuda.empty_cache()
     counts = main_path_phase(engine, cpu_engine, args.scale)
+    tpch_counts = tpch_phase(engine, cpu_engine, args.scale)
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = counts[r["name"]] + tpch_counts[r["name"]]
+        r["launches_by_path"] = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]]}
         if r["launches"] < 1:
             fail(f"kernel {r['name']} was never launched on the main path")
 
     emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
+    emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

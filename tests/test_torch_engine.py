@@ -135,8 +135,8 @@ def test_set_session_and_unported_plan_nodes(engines):
     assert port.execute("set session data_plane_kernels = false") == [(1,)]
     assert port.session.get("data_plane_kernels") is False
     port.execute("set session data_plane_kernels = true")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        port.query("select l_orderkey, count(distinct l_partkey) from lineitem group by l_orderkey")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        port.query("select n_name, x from nation cross join unnest(array[1, 2]) as t(x)")
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         port.query("select l_orderkey, rank() over (order by l_quantity) from lineitem")
 

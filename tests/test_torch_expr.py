@@ -251,3 +251,133 @@ def test_unported_operators_name_their_roadmap_item(both_sides):
     e = port_ir.Call("sqrt", (port_ir.FieldRef(4, PT.DOUBLE),), PT.DOUBLE)
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         port_expr.eval_expr(e, pcols, n)
+
+
+# ------------------------------- IN, LIKE, substring, CASE and coalesce
+
+
+_WORDS = np.asarray(
+    ["", "abc", "a%b", "x_y", "PROMO BRUSHED TIN", "special packages requests",
+     "Brand#12", "13-555", "31-907", "SM CASE", "MED BOX", "zz"], dtype=object,
+)
+
+
+def _string_cases(ir, T):
+    """(label, expr) over columns [s varchar null, k integer null,
+    a dec(12,2), w dec(38,2) limbed, x double null, y double, f bool]."""
+    d12, d38 = T.DecimalType(12, 2), T.DecimalType(38, 2)
+    S, K = ir.FieldRef(0, T.VARCHAR), ir.FieldRef(1, T.INTEGER)
+    A, W = ir.FieldRef(2, d12), ir.FieldRef(3, d38)
+    X, Y, F = ir.FieldRef(4, T.DOUBLE), ir.FieldRef(5, T.DOUBLE), ir.FieldRef(6, T.BOOLEAN)
+    C = lambda op, ty, *args: ir.Call(op, tuple(args), ty)
+    K3 = C("gt", T.BOOLEAN, K, ir.Const(3, T.INTEGER))
+    cases = [
+        ("in_str", ir.InListIr(S, ("abc", "zz", "", "absent"), False)),
+        ("not_in_str", ir.InListIr(S, ("SM CASE", "MED BOX"), True)),
+        ("in_int", ir.InListIr(K, (1, 5, 7), False)),
+        ("not_in_int", ir.InListIr(K, (0, 2), True)),
+        ("substr_len", C("substring", T.VARCHAR, S, ir.Const(1, T.BIGINT), ir.Const(2, T.BIGINT))),
+        ("substr_tail", C("substring", T.VARCHAR, S, ir.Const(3, T.BIGINT))),
+        ("in_substr", ir.InListIr(
+            C("substring", T.VARCHAR, S, ir.Const(1, T.BIGINT), ir.Const(2, T.BIGINT)),
+            ("13", "31"), False)),
+        ("case_dec", ir.CaseWhen(((K3, A),), C("neg", d12, A), d12)),
+        ("case_no_else", ir.CaseWhen(((K3, X), (F, Y)), None, T.DOUBLE)),
+        ("case_dec128", ir.CaseWhen(((F, W), (K3, C("cast", d38, A))), ir.Const(0, d38), d38)),
+        ("case_dec128_no_else", ir.CaseWhen(((K3, W),), None, d38)),
+        ("case_str", ir.CaseWhen(((K3, S),), ir.Const("other", T.VARCHAR), T.VARCHAR)),
+        ("case_str_no_else", ir.CaseWhen(((F, S), (K3, ir.Const("k", T.VARCHAR))), None, T.VARCHAR)),
+        ("case_null_cond", ir.CaseWhen(((C("gt", T.BOOLEAN, X, ir.Const(0.0, T.DOUBLE)), Y),),
+                                       X, T.DOUBLE)),
+        ("coalesce_f", C("coalesce", T.DOUBLE, X, Y)),
+        ("coalesce_int", C("coalesce", T.INTEGER, K, ir.Const(-1, T.INTEGER))),
+        ("coalesce_str", C("coalesce", T.VARCHAR, S, ir.Const("none", T.VARCHAR))),
+    ]
+    for pat in ("%b%", "a_c", "a%b", "x_y", "PROMO%", "%special%requests%", "%", "",
+                "Brand#1_", "_%BOX"):
+        cases.append((f"like[{pat}]", ir.LikeIr(S, pat, False)))
+        cases.append((f"not_like[{pat}]", ir.LikeIr(S, pat, True)))
+    return cases
+
+
+def _string_columns():
+    rng = np.random.default_rng(23)
+    n = 301
+    m = lambda p: rng.random(n) < p
+    wide = np.empty(n, dtype=object)
+    wide[:] = [int(v) * (1 << 30) for v in rng.integers(-(2**62), 2**62, n)]
+    return [
+        np.ma.MaskedArray(_WORDS[rng.integers(0, len(_WORDS), n)], mask=m(0.15)),
+        np.ma.MaskedArray(rng.integers(0, 8, n).astype(np.int32), mask=m(0.15)),
+        rng.integers(-10**9, 10**9, n), wide,
+        np.ma.MaskedArray(rng.normal(size=n), mask=m(0.2)), rng.normal(size=n), m(0.4),
+    ]
+
+
+def _string_types(T):
+    return [T.VARCHAR, T.INTEGER, T.DecimalType(12, 2), T.DecimalType(38, 2),
+            T.DOUBLE, T.DOUBLE, T.BOOLEAN]
+
+
+_STRING_LABELS = [label for label, _ in _string_cases(
+    __import__("trino_tpu_torch.plan.ir", fromlist=["x"]),
+    __import__("trino_tpu_torch.data.types", fromlist=["x"]),
+)]
+
+
+@pytest.fixture(scope="module")
+def string_sides():
+    from trino_tpu.data import types as RT
+    from trino_tpu.data.page import Page as RefPage
+    from trino_tpu.ops import expr as ref_expr
+    from trino_tpu.plan import ir as ref_ir
+    from trino_tpu_torch.data import types as PT
+    from trino_tpu_torch.data.page import Page
+    from trino_tpu_torch.ops import expr as port_expr
+    from trino_tpu_torch.plan import ir as port_ir
+
+    cols = _string_columns()
+    rpage = RefPage.from_numpy(_string_types(RT), cols)
+    ppage = Page.from_numpy(_string_types(PT), cols, device="cpu")
+    return (
+        dict(_string_cases(ref_ir, RT)), [ref_expr.column_val(c) for c in rpage.columns],
+        ref_expr, dict(_string_cases(port_ir, PT)),
+        [port_expr.column_val(c) for c in ppage.columns], port_expr, ppage.capacity, cols,
+    )
+
+
+# The reference labels coalesce's merged codes with its first argument's
+# dictionary, so a lane taken from a later branch names the wrong string
+# (ROADMAP §C).  For these labels the port is held to the strings SQL
+# defines, computed here from the numpy columns.
+_EXPECTED_STRINGS = {
+    "coalesce_str": lambda cols: [
+        "none" if masked else s for s, masked in zip(cols[0].data, np.ma.getmaskarray(cols[0]))
+    ],
+}
+
+
+@pytest.mark.parametrize("label", _STRING_LABELS)
+def test_dictionary_and_case_nodes_match_reference(label, string_sides):
+    """Each new node on NULL-bearing operands: validity exact, integers and
+    limbs exact, doubles within 1 ulp, varchar results equal as strings
+    (their dictionaries too)."""
+    rcases, rcols, ref_expr, pcases, pcols, port_expr, n, cols = string_sides
+    got = port_expr.eval_expr(pcases[label], pcols, n)
+    if label in _EXPECTED_STRINGS:
+        assert got.valid is None or bool(got.valid.numpy()[: len(cols[0])].all()), label
+        gs = got.dict.values[got.data.numpy()[: len(cols[0])]]
+        assert list(gs) == _EXPECTED_STRINGS[label](cols), label
+        return
+    want = ref_expr.eval_expr(rcases[label], rcols, n)
+    assert (got.dict is None) == (want.dict is None), label
+    if got.dict is None:
+        _assert_same(got, want, label)
+        return
+    gv = np.ones(n, bool) if got.valid is None else got.valid.numpy()
+    wv = np.ones(n, bool) if want.valid is None else _np(want.valid)
+    assert np.array_equal(gv, wv), f"{label}: validity differs"
+    assert list(got.dict.values) == list(want.dict.values), f"{label}: dictionaries differ"
+    gs = got.dict.values[got.data.numpy()[gv]]
+    ws = want.dict.values[_np(want.data)[wv]]
+    assert list(gs) == list(ws), label

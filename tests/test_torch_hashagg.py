@@ -391,9 +391,16 @@ def test_value_sorted_aggregates_still_raise():
     from trino_tpu_torch.ops.expr import ColumnVal
 
     k = ColumnVal(torch.arange(10), None, None, BIGINT)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        relops.group_aggregate([k], [k], [relops.AggSpec("count", distinct=True)],
-                               torch.ones(10, dtype=torch.bool), 16)
+    live = torch.ones(10, dtype=torch.bool)
+    # value-sorted aggregates decline the hash table and take the sort exit
+    assert relops._hash_aggregate(
+        [k], [k], [relops.AggSpec("count", distinct=True)], live, 16, [None]) is None
+    _, aggs, _, n_groups = relops.group_aggregate(
+        [k], [k], [relops.AggSpec("count", distinct=True)], live, 16)
+    assert int(n_groups) == 10 and aggs[0][0][:10].tolist() == [1] * 10
+    # a DISTINCT form the reference lacks too still raises
+    with pytest.raises(NotImplementedError, match="DISTINCT sum"):
+        relops.group_aggregate([k], [k], [relops.AggSpec("sum", distinct=True)], live, 16)
 
 
 def test_policy_defaults_are_the_cards():

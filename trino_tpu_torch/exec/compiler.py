@@ -15,10 +15,11 @@ operator output, so pages can be compared column by column with the
 reference's.  All required sizes of a run come back to the host in ONE
 packed transfer.
 
-The port handles TableScan, Filter, Project, Compact, Aggregate, Distinct,
-Join (every kind, cross joins against a single row included), Sort, TopN,
-Limit and EnforceSingleRow; other nodes raise NotImplementedError naming
-their ROADMAP item.
+The port handles TableScan, Values, Filter, Project, Compact, Aggregate,
+Distinct, Join (every kind, cross joins against a single row included),
+Concat (UNION ALL, and the union under INTERSECT / EXCEPT / UNION), Sort,
+TopN, Limit and EnforceSingleRow; other nodes raise NotImplementedError
+naming their ROADMAP item.
 
 Two more facts ride the packed `required` transfer: EnforceSingleRow's live
 count (key -(nid+1); the host raises past one row) and each hash join's
@@ -32,26 +33,26 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..connectors.spi import CatalogManager
-from ..data.page import Column, Page
+from ..data.page import Column, Dictionary, Page
 from ..ops.expr import ColumnVal, column_val, eval_expr, eval_predicate, translate_codes
 from ..ops.relops import (
     AggSpec, SortSpec, broadcast_single_row, compact_rows, equi_join,
     group_aggregate, limit_mask, sort_rows, top_n,
 )
 from ..plan.nodes import (
-    Aggregate, Compact, Distinct, EnforceSingleRow, Filter, Join, Limit,
-    PlanNode, Project, Sort, TableScan, TopN,
+    Aggregate, Compact, Concat, Distinct, EnforceSingleRow, Filter, Join, Limit,
+    PlanNode, Project, Sort, TableScan, TopN, Values,
 )
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
 _ROADMAP_ITEM = {
-    "Concat": "A.7", "Values": "A.7", "Unnest": "A.7",
-    "Window": "A.8", "MatchRecognize": "A.8",
+    "Unnest": "A.8", "Window": "A.8", "MatchRecognize": "A.8",
     "Exchange": "A.10", "RemoteSource": "A.10",
 }
 
@@ -163,7 +164,7 @@ class LocalExecutor:
         # nodes that overflowed, or {"sort_joins": ids} for failed hash joins
         self.last_retries = []
         for _ in range(12):  # capacity-retry loop
-            out_page, required = _trace_plan(plan, inputs, caps, sort_joins)
+            out_page, required = _trace_plan(plan, inputs, caps, sort_joins, self.device)
             required = _fetch_required(required)  # ONE device->host transfer
             for key, val in required.items():
                 if key < 0 and val > 1:
@@ -219,6 +220,8 @@ class LocalExecutor:
         def size_of(nid: int, n: PlanNode) -> int:
             if isinstance(n, TableScan):
                 return inputs[str(nid)].capacity
+            if isinstance(n, Values):
+                return max(len(n.rows), 1)
             child_sizes = [size_of(c, nodes[c]) for c in _child_ids(nodes, nid)]
             if not child_sizes:
                 return 1
@@ -244,6 +247,8 @@ class LocalExecutor:
                 if n.kind == "full":
                     return caps[nid] + child_sizes[0] + child_sizes[1]
                 return caps[nid]
+            if isinstance(n, Concat):
+                return sum(child_sizes)
             if isinstance(n, Compact):
                 # start as a pass-through (cap = input frame): whether this
                 # point actually compacts is learned from the first run's
@@ -334,13 +339,14 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
 
 def _trace_plan(
     plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
-    sort_joins: frozenset = frozenset(),
+    sort_joins: frozenset = frozenset(), device="cuda",
 ):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
     to a device scalar holding the size that node truly needed (plus the
     EnforceSingleRow counts and join guards, see the module docstring).
-    Joins whose ids are in `sort_joins` take the sort path."""
+    Joins whose ids are in `sort_joins` take the sort path; `device` holds
+    the rows of a Values node."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -456,8 +462,15 @@ def _trace_plan(
                 AggSpec(a.fn, a.distinct, a.param, a.sep, a.type)
                 for a in node.aggs
             ]
+            aorder = [
+                tuple(
+                    (eval_expr(k, s.cols, s.capacity, dev), asc, nf)
+                    for k, asc, nf in a.order_keys
+                )
+                for a in node.aggs
+            ]
             out_keys, out_aggs, out_live, n_groups = group_aggregate(
-                keys, args, specs, s.live, G, agg_args2=args2
+                keys, args, specs, s.live, G, agg_args2=args2, agg_order=aorder
             )
             report(nid, n_groups)
             cols: list[ColumnVal] = []
@@ -467,6 +480,8 @@ def _trace_plan(
                 hi = None
                 if len(out) == 4:  # decimal128 sum: (lo, valid, None, hi)
                     data, valid, d, hi = out
+                elif len(out) == 3:  # host-collected: carries its own dictionary
+                    data, valid, d = out
                 else:
                     data, valid = out
                     d = arg.dict if (arg is not None and a.fn in ("min", "max")) else None
@@ -545,10 +560,33 @@ def _trace_plan(
             s = emit(node.child)
             return _Stage(s.cols, limit_mask(s.live, node.count))
 
+        if isinstance(node, Concat):
+            stages = [emit(c) for c in node.inputs]
+            for st in stages:
+                # the reference refuses the high limb here too
+                if any(cv.data2 is not None for cv in st.cols):
+                    raise NotImplementedError("decimal128 columns through union")
+            cols = [
+                _concat_columns([st.cols[ci] for st in stages], t)
+                for ci, t in enumerate(node.output_types)
+            ]
+            return _Stage(cols, torch.cat([st.live for st in stages]))
+
+        if isinstance(node, Values):
+            dev = torch.device(device)
+            cols = []
+            for ci, t in enumerate(node.types):
+                vals = np.asarray([r[ci] for r in node.rows], dtype=t.np_dtype)
+                cols.append(ColumnVal(torch.from_numpy(vals).to(dev), None, None, t))
+            live = torch.arange(max(len(node.rows), 1), device=dev) < len(node.rows)
+            if not node.types:
+                live = torch.ones((len(node.rows) or 1,), dtype=torch.bool, device=dev)
+            return _Stage(cols, live)
+
         name = type(node).__name__
         raise NotImplementedError(
             f"plan node {name} is not ported to trino_tpu_torch yet "
-            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.7-A.11')})"
+            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.8-A.11')})"
         )
 
     events = _kernels.begin_capture()
@@ -565,6 +603,37 @@ def _trace_plan(
         stage.live,
     )
     return out_page, required
+
+
+def _concat_columns(parts: list[ColumnVal], t) -> ColumnVal:
+    """Row-concatenate column fragments; varchar fragments are re-coded into
+    a merged dictionary on the host (a dictionary-less fragment is a NULL
+    literal: its codes are masked)."""
+    if any(p.dict is not None for p in parts):
+        merged = Dictionary(np.unique(np.concatenate(
+            [p.dict.values for p in parts if p.dict is not None]
+        )))
+        datas = []
+        for p in parts:
+            if p.dict is None:
+                datas.append(torch.zeros_like(p.data, dtype=torch.int32))
+            else:
+                datas.append(translate_codes(p, merged))
+        data = torch.cat(datas)
+        out_dict = merged
+    else:
+        dtype = torch.from_numpy(np.zeros((0,), dtype=t.np_dtype)).dtype
+        data = torch.cat([p.data.to(dtype) for p in parts])
+        out_dict = None
+    if all(p.valid is None for p in parts):
+        valid = None
+    else:
+        valid = torch.cat([
+            p.valid if p.valid is not None
+            else torch.ones(p.data.shape, dtype=torch.bool, device=p.data.device)
+            for p in parts
+        ])
+    return ColumnVal(data, valid, out_dict, t)
 
 
 def _align_join_keys(lkeys: list[ColumnVal], rkeys: list[ColumnVal]):

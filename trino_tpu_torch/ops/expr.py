@@ -12,16 +12,19 @@ Value model: every IR expression evaluates to a ColumnVal
 NULL semantics are Kleene 3-valued logic for and/or, strict for everything
 else (reference: sql/ir + interpreter semantics).
 
-The port carries the operators TPC-H Q1/Q3/Q6 reach: literals (string
-literals as one-entry dictionaries), field references, arithmetic and
-comparisons (single-lane and decimal128), string comparisons through host
-tables over the dictionaries, casts between numeric types, Kleene
-and/or/not, is_null, date arithmetic and field extraction.  Every other
-operator raises NotImplementedError naming the ROADMAP item that ports it.
+The port carries the operators the 22 TPC-H queries reach: literals
+(string literals as one-entry dictionaries), field references, arithmetic
+and comparisons (single-lane and decimal128), string comparisons, IN lists,
+LIKE and substring through host tables over the dictionaries, CASE (numeric,
+decimal128 and varchar branches), coalesce, casts between numeric types,
+Kleene and/or/not, is_null, date arithmetic and field extraction.  Every
+other operator raises NotImplementedError naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -92,7 +95,13 @@ def eval_expr(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) -> Colu
         return _const_val(e, n, dev)
     if isinstance(e, Call):
         return _call(e, cols, n, dev)
-    if isinstance(e, (Param, CaseWhen, InListIr, LikeIr)):
+    if isinstance(e, CaseWhen):
+        return _case(e, cols, n, dev)
+    if isinstance(e, InListIr):
+        return _in_list(e, cols, n, dev)
+    if isinstance(e, LikeIr):
+        return _like(e, cols, n, dev)
+    if isinstance(e, Param):
         raise NotImplementedError(f"{type(e).__name__} expressions are {_NOT_PORTED}")
     raise NotImplementedError(f"eval: {e}")
 
@@ -173,9 +182,13 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
             if a.valid is None else ~a.valid
         )
         return ColumnVal(data, None, None, BOOLEAN)
+    if op == "coalesce":
+        return _coalesce(e, cols, n, dev)
     if op == "cast":
         a = eval_expr(e.args[0], cols, n, dev)
         return _cast(a, e.type, n)
+    if op == "substring":
+        return _substring(e, cols, n, dev)
     if op in ("extract_year", "extract_month", "extract_day"):
         a = eval_expr(e.args[0], cols, n, dev)
         y, m, d = _civil_from_days(a.data.to(torch.int64))
@@ -330,6 +343,94 @@ def _kleene(op: str, e: Call, cols: Sequence[ColumnVal], n: int, dev) -> ColumnV
     return ColumnVal(data, valid, None, BOOLEAN)
 
 
+def _case(e: CaseWhen, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """CASE WHEN: the branches evaluate over every lane and the first true
+    condition selects per lane; a missing ELSE is a typed NULL.  decimal128
+    branches select over both limbs (a single-lane branch such as the
+    literal 0 sign-extends into limb space, `_as_limbs`); varchar branches
+    are re-coded into the union of their dictionaries first."""
+    if e.default is not None:
+        out = eval_expr(e.default, cols, n, dev)
+    else:
+        out = ColumnVal(
+            torch.zeros((n,), dtype=_torch_dtype(e.type), device=dev),
+            torch.zeros((n,), dtype=torch.bool, device=dev),
+            None,
+            e.type,
+        )
+    evaluated = [
+        (eval_expr(c, cols, n, dev), eval_expr(r, cols, n, dev)) for c, r in e.whens
+    ]
+    limbed = out.data2 is not None or any(r.data2 is not None for _, r in evaluated)
+    if out.dict is not None or any(r.dict is not None for _, r in evaluated):
+        out, *rs = _to_union_dict([out] + [r for _, r in evaluated], n, dev, e.type, "CASE")
+        evaluated = [(c, r) for (c, _), r in zip(evaluated, rs)]
+    out_data, out_valid, out_hi = out.data, out.valid, None
+    if limbed:
+        out_data, out_hi = _as_limbs(out)
+    for c, r in reversed(evaluated):
+        cm = c.data.to(torch.bool)
+        if c.valid is not None:
+            cm = cm & c.valid
+        if limbed:
+            rlo, rhi = _as_limbs(r)
+            out_data = torch.where(cm, rlo, out_data)
+            out_hi = torch.where(cm, rhi, out_hi)
+        else:
+            out_data = torch.where(cm, r.data.to(out_data.dtype), out_data)
+        if out_valid is not None or r.valid is not None:
+            ov = out_valid if out_valid is not None else torch.ones_like(cm)
+            rv = r.valid if r.valid is not None else torch.ones_like(cm)
+            out_valid = torch.where(cm, rv, ov)
+    return ColumnVal(out_data, out_valid, out.dict, e.type, data2=out_hi)
+
+
+def _coalesce(e: Call, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """First non-NULL argument per lane, merged in a dtype wide enough for
+    every branch; varchar branches are re-coded into the union of their
+    dictionaries first, as CASE's are."""
+    vals = [eval_expr(a, cols, n, dev) for a in e.args]
+    if any(v.data2 is not None for v in vals):
+        raise NotImplementedError("decimal128 through coalesce")
+    if any(v.dict is not None for v in vals):
+        vals = _to_union_dict(vals, n, dev, e.type, "coalesce")
+    out = vals[-1]
+    for v in reversed(vals[:-1]):
+        if v.valid is None:
+            out = v
+        else:
+            merged = torch.promote_types(v.data.dtype, out.data.dtype)
+            out = ColumnVal(
+                torch.where(v.valid, v.data.to(merged), out.data.to(merged)),
+                None if out.valid is None else (v.valid | out.valid),
+                v.dict,
+                v.type,
+            )
+    return out
+
+
+def _to_union_dict(branches: list[ColumnVal], n: int, dev, ty, what: str) -> list[ColumnVal]:
+    """Varchar branches re-coded into the union of their dictionaries, so
+    that codes merged lane by lane from several branches name the right
+    strings."""
+    # a dictionary-less varchar branch is a NULL literal: its codes never
+    # surface through its all-false validity
+    if any(b.dict is None and not (b.type is None or b.type.is_string) for b in branches):
+        raise NotImplementedError(f"{what} mixing varchar and non-varchar results")
+    union = np.unique(np.concatenate(
+        [np.asarray(b.dict.values, dtype=object) for b in branches if b.dict is not None]
+    ))
+    udict = Dictionary(union)
+
+    def remap(b: ColumnVal) -> ColumnVal:
+        if b.dict is None:
+            return ColumnVal(torch.zeros((n,), dtype=torch.int32, device=dev), b.valid, udict, ty)
+        table = np.searchsorted(union, np.asarray(b.dict.values, dtype=object))
+        return ColumnVal(_gather_table(table.astype(np.int32), b), b.valid, udict, ty)
+
+    return [remap(b) for b in branches]
+
+
 def _as_limbs(v: ColumnVal):
     """(lo, hi) int64 pair; single-lane numeric operands sign-extend."""
     lo = v.data.to(torch.int64)
@@ -426,12 +527,81 @@ def _dict_vs_const(op: str, col: ColumnVal, const: str, valid) -> ColumnVal:
         "eq": _op.eq, "ne": _op.ne, "lt": _op.lt, "le": _op.le, "gt": _op.gt, "ge": _op.ge,
     }[op]
     table = np.asarray([py(str(v), const) for v in col.dict.values], dtype=np.bool_)
-    if len(table) == 0:  # an empty dictionary: every lane is dead or NULL
-        table = np.zeros((1,), dtype=np.bool_)
-    data = torch.from_numpy(table).to(col.data.device).index_select(
+    return ColumnVal(_gather_table(table, col), valid, None, BOOLEAN)
+
+
+def _gather_table(table: np.ndarray, col: ColumnVal) -> torch.Tensor:
+    """A host table over `col`'s dictionary, gathered on the device by code
+    (an empty dictionary has only dead or NULL lanes: they read entry 0)."""
+    if len(table) == 0:
+        table = np.zeros((1,), dtype=table.dtype)
+    return torch.from_numpy(table).to(col.data.device).index_select(
         0, col.data.to(torch.int64).clamp(0, len(table) - 1)
     )
-    return ColumnVal(data, valid, None, BOOLEAN)
+
+
+def _in_list(e: InListIr, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """x [NOT] IN (literals): a host table over a varchar operand's
+    dictionary, OR-ed equalities over a numeric one."""
+    a = eval_expr(e.operand, cols, n, dev)
+    if a.dict is not None:
+        wanted = {str(v) for v in e.values}
+        table = np.asarray([str(v) in wanted for v in a.dict.values], dtype=np.bool_)
+        m = _gather_table(table, a)
+    else:
+        m = torch.zeros((n,), dtype=torch.bool, device=dev)
+        for v in e.values:
+            m = m | (a.data == v)
+    if e.negated:
+        m = ~m
+    return ColumnVal(m, a.valid, None, BOOLEAN)
+
+
+def _like(e: LikeIr, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """[NOT] LIKE: the pattern is matched once per distinct dictionary value
+    on the host, and the table is gathered by code."""
+    a = eval_expr(e.operand, cols, n, dev)
+    rx = _like_regex(e.pattern)
+    table = np.asarray(
+        [rx.fullmatch(str(v)) is not None for v in a.dict.values], dtype=np.bool_
+    )
+    m = _gather_table(table, a)
+    if e.negated:
+        m = ~m
+    return ColumnVal(m, a.valid, None, BOOLEAN)
+
+
+def _like_regex(pattern: str) -> re.Pattern:
+    """A LIKE pattern as an anchored regex: % any run, _ any one character."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("".join(out), re.DOTALL)
+
+
+def _substring(e: Call, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """substring(x, start[, length]) with literal bounds: the sliced distinct
+    values form a new dictionary and the codes are remapped into it."""
+    a = eval_expr(e.args[0], cols, n, dev)
+    start = e.args[1]
+    length = e.args[2] if len(e.args) > 2 else None
+    if not isinstance(start, Const) or not (length is None or isinstance(length, Const)):
+        raise NotImplementedError("substring bounds must be literals")
+    s = int(start.value)
+    if length is not None:
+        ln = int(length.value)
+        vals = [str(v)[s - 1 : s - 1 + ln] for v in a.dict.values]
+    else:
+        vals = [str(v)[s - 1 :] for v in a.dict.values]
+    uniq, remap = np.unique(np.asarray(vals, dtype=object), return_inverse=True)
+    return ColumnVal(
+        _gather_table(remap.astype(np.int32).reshape(-1), a), a.valid, Dictionary(uniq), VARCHAR
+    )
 
 
 # ------------------------------------------------------------- date helpers

@@ -17,8 +17,13 @@ plus a `live` mask; dead lanes carry garbage and are never branched on.
 - `top_n` by radix select (kernel 5, ops/cuda/topk.py) or a sort;
 - `sort_rows`, `limit_mask`, `compact_rows`, `broadcast_single_row`.
 
-Value-sorted aggregates (DISTINCT, percentile, approx_distinct) and the
-host-collected aggregates raise NotImplementedError naming ROADMAP A.7.
+Value-sorted aggregates (count DISTINCT, approx_percentile) take the sort
+path: the rows sort by the group keys and then by the argument, so first
+occurrences and ranks are adjacency facts.  Their per-group counts, the
+HyperLogLog register sums of approx_distinct, and the moment sums of the
+variance and correlation family ride the same one segmented reduction as
+every other aggregate of the node.  array_agg / map_agg / listagg are
+collected on the host over the sorted grouping.
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ __all__ = [
 
 @dataclass(frozen=True)
 class AggSpec:
-    fn: str  # sum | count | count_star | min | max | avg (ported); the
-    #          reference's other aggregate names raise NotImplementedError
+    fn: str  # sum | count | count_star | min | max | avg | bool_and |
+    #          bool_or | stddev_samp | stddev_pop | var_samp | var_pop |
+    #          percentile | approx_distinct | corr | covar_samp | covar_pop |
+    #          regr_slope | regr_intercept | array_agg | map_agg | listagg
     distinct: bool = False
     param: Optional[float] = None  # percentile's p
     sep: Optional[str] = None  # listagg separator
@@ -51,6 +58,11 @@ class AggSpec:
 
 # aggregates computed on the HOST over the sorted grouping
 HOST_AGGS = frozenset({"array_agg", "map_agg", "listagg"})
+
+# two-argument moment aggregates (pairwise sums in the fused reduction)
+MOMENT_AGGS = frozenset(
+    {"corr", "covar_samp", "covar_pop", "regr_slope", "regr_intercept"}
+)
 
 
 @dataclass(frozen=True)
@@ -217,6 +229,9 @@ def _hash_aggregate(key_vals, agg_args, specs, live, G, agg_args2):
     from .cuda import hashagg
     from .kernels import get_policy, impl_for, record_dispatch
 
+    if _value_sorted(specs):
+        record_dispatch("group_by", "sort", "value-sorted aggregate")
+        return None
     policy = get_policy()
     if not policy.enabled:
         record_dispatch("group_by", "sort", "kernels disabled")
@@ -288,8 +303,9 @@ def group_aggregate(
     """Grouped aggregation.
 
     Returns (out_keys: list[(data, valid, data2-or-None)], out_aggs:
-    list[(data, valid)] or the decimal128 4-tuple (lo, valid, None, hi),
-    out_live, n_groups) where outputs have capacity `num_groups_cap` and
+    list[(data, valid)], the decimal128 4-tuple (lo, valid, None, hi) or,
+    for a host-collected aggregate, (codes, valid, Dictionary)], out_live,
+    n_groups) where outputs have capacity `num_groups_cap` and
     n_groups is the true group count (> cap == overflow, the executor
     retries).  Paths, first that applies: no keys; small dictionary keys;
     the hash table; the sort.
@@ -304,13 +320,6 @@ def group_aggregate(
     if not key_vals:
         return _global_aggregate(agg_args, specs, live, agg_args2, agg_order)
 
-    if _value_sorted(specs):
-        bad = next(s for s in specs if _value_sorted([s]))
-        raise NotImplementedError(
-            f"aggregate {bad.fn}{' distinct' if bad.distinct else ''} is not "
-            "ported to trino_tpu_torch yet (ROADMAP A.7)"
-        )
-
     fast = _direct_code_aggregate(key_vals, agg_args, specs, live, agg_args2)
     if fast is not None:
         return fast
@@ -319,24 +328,11 @@ def group_aggregate(
     if hashed is not None:
         return hashed
 
-    # ---- sort rows by (dead-last, keys...); a run boundary opens a group
+    # ---- sort rows by (dead-last, keys..., [the first value-sorted agg's
+    # argument]); a run boundary of the keys opens a group
     dev = live.device
-    operands: list[torch.Tensor] = [(~live).to(torch.int8)]
-    for kv in key_vals:
-        operands.append((~_valid_of(kv, n)).to(torch.int8))  # nulls group together (last)
-        operands.extend(_sortable_operands(kv))  # 2 operands for decimal128
-    perm = _lexsort(operands)
-    live_s = live.index_select(0, perm)
-    diff = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for op in operands[1:]:
-        op_s = op.index_select(0, perm)
-        diff = diff | (op_s != torch.cat([op_s[:1], op_s[:-1]]))
-    first = torch.zeros((n,), dtype=torch.bool, device=dev)
-    first[:1] = True
-    new_group = live_s & (first | diff)
-    seg_s = torch.cumsum(new_group.to(torch.int64), 0) - 1
-    seg_s = torch.where(live_s, seg_s, torch.full_like(seg_s, G)).clamp(max=G)
-    n_groups = new_group.sum(dtype=torch.int64)
+    grouping = _SortedGrouping(key_vals, live, G, _first_value_sorted_arg(agg_args, specs))
+    perm, live_s, seg_s, _new_group, n_groups = grouping.main()
 
     # ---- output keys: the first row of each group (seg_s is nondecreasing)
     gids = torch.arange(G, dtype=torch.int64, device=dev)
@@ -354,9 +350,73 @@ def group_aggregate(
     # group ids go back to the rows' own positions instead of gathering
     # every argument into sorted order
     seg = torch.empty_like(seg_s).scatter_(0, perm, seg_s).to(torch.int32)
-    out_aggs = _fused_aggs(agg_args, specs, seg, live, G, n, agg_args2=agg_args2)
+    out_aggs = _fused_aggs(
+        agg_args, specs, seg, live, G, n, agg_args2=agg_args2,
+        grouping=grouping, agg_order=agg_order,
+    )
     out_live = gids < torch.clamp(n_groups, max=G)
     return out_keys, out_aggs, out_live, n_groups
+
+
+def _first_value_sorted_arg(agg_args, specs) -> Optional[ColumnVal]:
+    """The argument the main grouping sort carries: the first DISTINCT or
+    percentile aggregate's (None when there is none)."""
+    for arg, spec in zip(agg_args, specs):
+        if (spec.distinct or spec.fn == "percentile") and arg is not None:
+            return arg
+    return None
+
+
+class _SortedGrouping:
+    """The sort-based grouping of one aggregation: rows ordered by (dead
+    last, then per key its validity and value), optionally followed by the
+    (validity, value) of one value-sorted argument.  The validity of that
+    argument sorts BEFORE its value, so a NULL lane whose payload equals a
+    live value can never be a group's first occurrence of it.  Group order
+    is fixed by the keys alone, so every sort of one grouping numbers its
+    groups alike and segment ids line up across sorts.  The main sort
+    carries `main_extra`; each further value-sorted argument gets its own."""
+
+    def __init__(self, key_vals, live: torch.Tensor, G: int, main_extra=None):
+        self.live = live
+        self.G = G
+        self.n = live.shape[0]
+        self.main_extra = main_extra
+        self.key_ops: list[torch.Tensor] = []
+        for kv in key_vals:
+            self.key_ops.append((~_valid_of(kv, self.n)).to(torch.int8))  # nulls last
+            self.key_ops.extend(_sortable_operands(kv))  # 2 operands for decimal128
+        self._memo: dict = {}
+
+    def main(self):
+        return self.sort(self.main_extra)
+
+    def sort(self, extra: Optional[ColumnVal]):
+        """-> (perm, live_s, seg_s, new_group, n_groups): seg_s is the
+        sorted rows' group id (G for dead rows), nondecreasing."""
+        hit = self._memo.get(id(extra))
+        if hit is not None:
+            return hit[1]
+        n, G, dev = self.n, self.G, self.live.device
+        operands = [(~self.live).to(torch.int8)] + self.key_ops
+        if extra is not None:
+            operands = operands + [(~_valid_of(extra, n)).to(torch.int8)]
+            operands.extend(_sortable_operands(extra))
+        perm = _lexsort(operands)
+        live_s = self.live.index_select(0, perm)
+        diff = torch.zeros((n,), dtype=torch.bool, device=dev)
+        for op in self.key_ops:
+            op_s = op.index_select(0, perm)
+            diff = diff | (op_s != torch.cat([op_s[:1], op_s[:-1]]))
+        first = torch.zeros((n,), dtype=torch.bool, device=dev)
+        first[:1] = True
+        new_group = live_s & (first | diff)
+        seg_s = torch.cumsum(new_group.to(torch.int64), 0) - 1
+        seg_s = torch.where(live_s, seg_s, torch.full_like(seg_s, G)).clamp(max=G)
+        n_groups = new_group.sum(dtype=torch.int64)
+        out = (perm, live_s, seg_s, new_group, n_groups)
+        self._memo[id(extra)] = (extra, out)  # holding extra keeps its id unique
+        return out
 
 
 _DIRECT_DOMAIN_LIMIT = 4096
@@ -369,10 +429,7 @@ def _direct_code_aggregate(key_vals, agg_args, specs, live, agg_args2=None):
     linestatus = 6 groups).  Group-by becomes a bandwidth-bound reduction."""
     if agg_args2 is None:
         agg_args2 = [None] * len(specs)
-    if any(
-        s.distinct or s.fn in ("percentile", "approx_distinct") or s.fn in HOST_AGGS
-        for s in specs
-    ):
+    if _value_sorted(specs):
         return None
     domains = []
     for kv in key_vals:
@@ -415,15 +472,23 @@ def _direct_code_aggregate(key_vals, agg_args, specs, live, agg_args2=None):
 
 def _fused_aggs(
     agg_args, specs, seg, live_s, G, n, agg_args2=None, want_rows=False,
+    grouping=None, agg_order=None,
 ):
-    """All non-DISTINCT aggregates of a GROUP BY in one fused segmented
-    reduction (ops/cuda/segreduce.py): one pass over the rows computes every
-    SUM/COUNT/AVG/MIN/MAX.  This replaces the reference's per-function
-    Accumulator loop (operator/aggregation/) with one bandwidth-bound kernel.
+    """Every aggregate of a GROUP BY in one fused segmented reduction
+    (ops/cuda/segreduce.py): one pass over the rows computes every
+    SUM/COUNT/AVG/MIN/MAX, the {0,1} min/max of bool_and/bool_or, the sums
+    of x and x² of the variance family, the five pairwise sums of the
+    moment aggregates, the first-occurrence counts of count(DISTINCT), the
+    valid counts of approx_percentile and the register sums of
+    approx_distinct.  This replaces the reference's per-function Accumulator
+    loop (operator/aggregation/) with one bandwidth-bound kernel.  `seg`
+    holds each row's group id at the row's own position.
 
-    Returns a list aligned with specs.  With `want_rows` it returns
-    (list, live rows per segment): the per-group row count rides the same
-    pass instead of costing a second one.
+    `grouping` (a _SortedGrouping) is required by the value-sorted and
+    host-collected aggregates, which only the sort path serves.  Returns a
+    list aligned with specs.  With `want_rows` it returns (list, live rows
+    per segment): the per-group row count rides the same pass instead of
+    costing a second one.
     """
     from . import kernels as _kernels
     from .cuda.segreduce import SegRed, fused_segment_reduce
@@ -441,27 +506,64 @@ def _fused_aggs(
             count_memo[key] = add(SegRed("count", None, valid))
         return count_memo[key]
 
+    def in_rows(perm, sorted_vals):
+        """Values of the sorted rows back at the rows' own positions."""
+        return torch.empty_like(sorted_vals).scatter_(0, perm, sorted_vals)
+
     if agg_args2 is None:
         agg_args2 = [None] * len(specs)
+    if agg_order is None:
+        agg_order = [()] * len(specs)
     rows_ix = add_count(live_s) if want_rows else None
     recipe: list = []
-    for arg, arg2, spec in zip(agg_args, agg_args2, specs):
-        if spec.distinct or spec.fn in ("percentile", "approx_distinct") or spec.fn in HOST_AGGS:
+    for arg, arg2, spec, order in zip(agg_args, agg_args2, specs, agg_order):
+        if any(v is not None and v.data2 is not None for v in (arg, arg2)) and not (
+            spec.fn in ("sum", "count", "min", "max") and not spec.distinct
+        ):
             raise NotImplementedError(
-                f"aggregate {spec.fn}{' distinct' if spec.distinct else ''} is not "
-                "ported to trino_tpu_torch yet (ROADMAP A.7)"
+                f"aggregate {spec.fn} over decimal128 lanes (sum/count/min/max only)"
             )
+        if _value_sorted([spec]) and grouping is None:
+            raise ValueError(f"aggregate {spec.fn} needs the sort-based grouping")
+        if spec.fn in HOST_AGGS:
+            recipe.append(("host", spec, arg, arg2, order))
+            continue
+        if spec.fn == "approx_distinct":
+            recipe.append(("hll",) + _hll_reds(arg, seg, live_s, G, n, add))
+            continue
+        if spec.distinct or spec.fn == "percentile":
+            perm, ls, seg_s, new_group, _ = grouping.sort(arg)
+            data_s = arg.data.index_select(0, perm)
+            valid_s = _valid_of(arg, n).index_select(0, perm) & ls
+            if spec.fn == "percentile":
+                recipe.append(
+                    ("percentile", spec.param, data_s, seg_s,
+                     add_count(_valid_of(arg, n) & live_s))
+                )
+                continue
+            if spec.fn != "count":
+                raise NotImplementedError(f"DISTINCT {spec.fn}")
+            # a value's first occurrence in its group, found by adjacency
+            prev = torch.cat([data_s[:1], data_s[:-1]])
+            first = (new_group | (data_s != prev)) & valid_s
+            recipe.append(("count", add(SegRed("count", None, in_rows(perm, first)))))
+            continue
+        if spec.fn in MOMENT_AGGS:
+            # pairwise moments over the rows where BOTH arguments are
+            # non-NULL (reference: CorrelationAggregation and friends)
+            pv = _valid_of(arg, n) & _valid_of(arg2, n) & live_s
+            y = arg.data.to(torch.float64)
+            x = arg2.data.to(torch.float64)
+            recipe.append((
+                "moment", spec.fn,
+                add(SegRed("sum", y, pv)), add(SegRed("sum", x, pv)),
+                add(SegRed("sum", x * y, pv)), add(SegRed("sum", x * x, pv)),
+                add(SegRed("sum", y * y, pv)), add_count(pv),
+            ))
+            continue
         if spec.fn == "count_star":
             recipe.append(("count", add_count(live_s)))
             continue
-        if arg2 is not None or spec.fn not in ("count", "sum", "avg", "min", "max"):
-            raise NotImplementedError(
-                f"aggregate {spec.fn} is not ported to trino_tpu_torch yet (ROADMAP A.7)"
-            )
-        if arg.data2 is not None and spec.fn == "avg":
-            raise NotImplementedError(
-                "aggregate avg over decimal128 lanes (sum/count/min/max only)"
-            )
         data = arg.data
         # a no-NULL argument shares the live mask itself, so its count and
         # validity reads are deduplicated across the aggregates of the pass
@@ -509,14 +611,32 @@ def _fused_aggs(
             as_int = spec.fn == "sum" and is_int
             vals = data if as_int else data.to(torch.float64)
             recipe.append((spec.fn, add(SegRed("sum", vals, valid)), add_count(valid)))
-        elif arg.dict is not None:
-            rank = torch.from_numpy(arg.dict.sorted_rank()).to(data.device)
-            rdata = rank.index_select(0, arg.data.to(torch.int64))
-            recipe.append(
-                ("dictmm", spec.fn, arg, add(SegRed(spec.fn, rdata, valid)), add_count(valid))
-            )
+        elif spec.fn in ("min", "max"):
+            if arg.dict is not None:
+                rank = torch.from_numpy(arg.dict.sorted_rank()).to(data.device)
+                rdata = rank.index_select(0, arg.data.to(torch.int64))
+                recipe.append(
+                    ("dictmm", spec.fn, arg, add(SegRed(spec.fn, rdata, valid)),
+                     add_count(valid))
+                )
+            else:
+                recipe.append(("minmax", add(SegRed(spec.fn, data, valid)), add_count(valid)))
+        elif spec.fn in ("bool_and", "bool_or"):
+            # AND == min over {0,1}, OR == max (reference: aggregation/
+            # BooleanAndAggregation / BooleanOrAggregation)
+            red = "min" if spec.fn == "bool_and" else "max"
+            recipe.append(("bool", add(SegRed(red, data.to(torch.int32), valid)), add_count(valid)))
+        elif spec.fn in ("stddev_samp", "stddev_pop", "var_samp", "var_pop"):
+            x = data.to(torch.float64)
+            recipe.append((
+                "var", spec.fn, add(SegRed("sum", x, valid)),
+                add(SegRed("sum", x * x, valid)), add_count(valid),
+            ))
         else:
-            recipe.append(("minmax", add(SegRed(spec.fn, data, valid)), add_count(valid)))
+            raise NotImplementedError(
+                f"aggregate {spec.fn} is not ported to trino_tpu_torch yet "
+                "(ROADMAP A.8: remaining SQL surface)"
+            )
 
     def reduce(rs):
         _kernels.record_dispatch(
@@ -561,7 +681,7 @@ def _fused_aggs(
             )
             lo_best = reduce([SegRed(fn, lo_b, at_best)])[0]
             out.append((lo_best ^ -(2**63), cnt > 0, None, hi_g))
-        else:  # dictmm: map best rank back to a dictionary code
+        elif kind == "dictmm":  # map best rank back to a dictionary code
             _, fn, arg, si, ci = r
             best_rank, cnt = results[si], results[ci]
             inv = np.argsort(arg.dict.sorted_rank()).astype(np.int32)
@@ -569,22 +689,303 @@ def _fused_aggs(
                 0, best_rank.to(torch.int64).clamp(0, len(inv) - 1)
             )
             out.append((code, cnt > 0))
+        elif kind == "bool":
+            s, cnt = results[r[1]], results[r[2]]
+            out.append((s > 0, cnt > 0))
+        elif kind == "var":
+            _, fn, si, qi, ci = r
+            out.append(_variance(fn, results[si], results[qi], results[ci]))
+        elif kind == "moment":
+            _, fn, *ix = r
+            out.append(_moment(fn, *(results[i] for i in ix)))
+        elif kind == "percentile":
+            _, p, data_s, seg_s, ci = r
+            out.append(_segment_percentile(p, data_s, seg_s, results[ci], G))
+        elif kind == "hll":
+            _, hi_i, lo_i, e_i = r
+            out.append((_hll_estimate(results[hi_i], results[lo_i], results[e_i]), None))
+        else:  # host: collected over the main sort's grouping
+            _, spec, arg, arg2, order = r
+            perm, ls, seg_s, _, _ = grouping.main()
+            out.append(_host_collect_agg(spec, arg, arg2, perm, seg_s, ls, G, n, order))
     if want_rows:
         return out, results[rows_ix]
     return out
 
 
+def _variance(fn: str, s, ss, cnt):
+    """var / stddev from the sums of x and x² (reference: VarianceAggregation
+    semantics): the population variance floored at 0 against cancellation
+    on near-constant data; the sample forms are NULL for n <= 1."""
+    cf = cnt.to(torch.float64)
+    safe_n = torch.where(cnt > 0, cf, torch.ones_like(cf))
+    mean = s / safe_n
+    var_pop = torch.clamp(ss / safe_n - mean * mean, min=0.0)
+    if fn.endswith("_pop"):
+        var, ok = var_pop, cnt > 0
+    else:
+        var = var_pop * safe_n / torch.where(cnt > 1, cf - 1.0, torch.ones_like(cf))
+        ok = cnt > 1
+    if fn.startswith("stddev"):
+        var = torch.sqrt(var)
+    return var, ok
+
+
+def _moment(fn: str, sy, sx, sxy, sxx, syy, cnt):
+    """corr / covar / regr from the five pairwise sums, as the reference
+    assembles them (n·var floored at 0; NULL for n <= 1 or zero variance)."""
+    nf = torch.where(cnt > 0, cnt, torch.ones_like(cnt)).to(torch.float64)
+    one = torch.ones_like(nf)
+    cov_n = sxy - sx * sy / nf  # n * cov
+    varx_n = torch.clamp(sxx - sx * sx / nf, min=0.0)  # n * var(x)
+    vary_n = torch.clamp(syy - sy * sy / nf, min=0.0)
+    if fn == "covar_pop":
+        return cov_n / nf, cnt > 0
+    if fn == "covar_samp":
+        return cov_n / torch.where(cnt > 1, nf - 1.0, one), cnt > 1
+    if fn == "corr":
+        denom = torch.sqrt(varx_n * vary_n)
+        ok = (cnt > 1) & (denom > 0)
+        return cov_n / torch.where(ok, denom, one), ok
+    ok = (cnt > 1) & (varx_n > 0)
+    slope = cov_n / torch.where(ok, varx_n, one)
+    if fn == "regr_slope":
+        return slope, ok
+    return (sy - slope * sx) / nf, ok  # regr_intercept = mean(y) - slope * mean(x)
+
+
+def _segment_percentile(p: float, data_s, seg_s, vcnt, G: int):
+    """approx_percentile as exact nearest-rank selection on the grouped sort:
+    each group's valid values are a contiguous ascending run at its start
+    (validity sorts before value), so the answer is a gather at the group's
+    start plus round(p·(count − 1)).  The reference is exact here too."""
+    n = data_s.shape[0]
+    gids = torch.arange(G, dtype=seg_s.dtype, device=seg_s.device)
+    starts = searchsorted_tpu(seg_s, gids, side="left")
+    off = torch.floor(p * torch.clamp(vcnt - 1, min=0).to(torch.float64) + 0.5)
+    idx = torch.clamp(starts + off.to(torch.int64), 0, max(n - 1, 0))
+    return data_s.index_select(0, idx), vcnt > 0
+
+
+# ------------------------------------------------ approx_distinct (HLL)
+
+_HLL_P = 12  # m = 4096 registers: ~1.04/sqrt(m) = 1.6% standard error
+
+
+def _hll_alpha(m: int) -> float:
+    if m >= 128:
+        return 0.7213 / (1.0 + 1.079 / m)
+    return {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7)
+
+
+def _hash64(data: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of the value bits, masked to 63 bits (int64, sign clear).
+    Floats hash their full f64 bit pattern."""
+    if data.dtype.is_floating_point:
+        data = data.to(torch.float64).view(torch.int64)
+    return _mix64(data.to(torch.int64)) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def _bitlen64(v: torch.Tensor) -> torch.Tensor:
+    """Bit length of non-negative int64 lanes by six halving steps — exact
+    over the whole 63-bit range, where a float log2 is not."""
+    v = v.to(torch.int64)
+    bl = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (v >> s) > 0
+        bl = bl + big.to(torch.int32) * s
+        v = torch.where(big, v >> s, v)
+    return bl + (v > 0).to(torch.int32)
+
+
+def _hll_reds(arg: ColumnVal, seg, live, G: int, n: int, add):
+    """The reductions of a grouped HyperLogLog (the reference's
+    `_segment_hll`, same hash, buckets and registers).  One sort by
+    (group, bucket, rho) puts each register's maximum rho at its run end;
+    a run end contributes 2^-rho and one non-empty register to its group.
+    2^-rho = 2^(bitlen − 52) is summed exactly as the integer 2^bitlen,
+    split into two int64 parts so no sum can wrap, and both sums ride the
+    fused pass at the rows' own positions.  Returns the three indices of
+    (high part, low part, non-empty registers)."""
+    from .cuda.segreduce import SegRed
+
+    m = 1 << _HLL_P
+    rest_bits = 63 - _HLL_P
+    valid = _valid_of(arg, n) & live
+    h = _hash64(arg.data)
+    bucket = h >> rest_bits
+    bitlen = _bitlen64(h & ((1 << rest_bits) - 1))
+    rho = rest_bits + 1 - bitlen.to(torch.int64)  # [1, 52]
+    dead = G * m
+    combined = torch.where(valid, seg.to(torch.int64) * m + bucket, torch.full_like(bucket, dead))
+    key_s, hperm = torch.sort(combined * 64 + rho)
+    c_s = key_s >> 6
+    is_end = torch.cat([c_s[1:] != c_s[:-1], torch.ones((1,), dtype=torch.bool, device=c_s.device)])
+    live_end = is_end & (c_s < dead)
+    power = torch.ones_like(c_s) << (52 - (key_s & 63))  # 2^bitlen of the run end
+    end_rows = torch.empty_like(live_end).scatter_(0, hperm, live_end)
+    power_rows = torch.empty_like(power).scatter_(0, hperm, power)
+    return (
+        add(SegRed("sum", power_rows >> 11, end_rows)),
+        add(SegRed("sum", power_rows & 2047, end_rows)),
+        add(SegRed("count", None, end_rows)),
+    )
+
+
+def _hll_estimate(hi_sum, lo_sum, e_cnt) -> torch.Tensor:
+    """HyperLogLog estimate per group from its register sums, with the
+    small-range (linear counting) correction; 0 for a group without
+    values."""
+    m = 1 << _HLL_P
+    z_part = hi_sum.to(torch.float64) * 2.0**-41 + lo_sum.to(torch.float64) * 2.0**-52
+    e = e_cnt.to(torch.float64)
+    z = (m - e) + z_part  # an empty register contributes 2^0
+    estimate = _hll_alpha(m) * m * m / torch.clamp(z, min=1e-12)
+    v_empty = m - e
+    small = m * torch.log(m / torch.clamp(v_empty, min=1.0))
+    estimate = torch.where((estimate < 2.5 * m) & (v_empty > 0), small, estimate)
+    counts = torch.round(estimate).to(torch.int64)
+    return torch.where(e_cnt > 0, counts, torch.zeros_like(counts))
+
+
+# ------------------------------------------- host-collected aggregates
+
+
+def _host_sort_rank(data: np.ndarray, valid, dictionary, ascending: bool, nulls_first: bool):
+    """(null_rank, value_rank) int arrays for np.lexsort, encoding NULL
+    placement and direction (string keys rank through their values)."""
+    n = len(data)
+    if dictionary is not None:
+        decoded = dictionary.values[np.clip(data, 0, max(len(dictionary) - 1, 0))]
+        _, rank = np.unique(decoded, return_inverse=True)
+    else:
+        try:
+            _, rank = np.unique(data, return_inverse=True)
+        except TypeError:  # mixed-type object lanes: rank by repr
+            _, rank = np.unique(
+                np.asarray([repr(v) for v in data], dtype=object), return_inverse=True
+            )
+    rank = rank.reshape(-1).astype(np.int64)
+    if not ascending:
+        rank = -rank
+    if valid is None:
+        null_rank = np.zeros(n, dtype=np.int8)
+    else:
+        is_null = ~np.asarray(valid)
+        null_rank = np.where(is_null, -1 if nulls_first else 1, 0).astype(np.int8)
+        rank = np.where(is_null, 0, rank)
+    return null_rank, rank
+
+
+def _py(v):
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def _host_collect_agg(spec, arg, arg2, perm, seg_s, live_s, G: int, n: int, order=()):
+    """array_agg / map_agg / listagg: per-group collection on the HOST over
+    the sorted grouping (reference: aggregation/ArrayAggregationFunction,
+    MapAggAggregationFunction, ListaggAggregationFunction).  The results
+    are interned into a dictionary of structured values; returns (codes,
+    valid, Dictionary) on the grouping's device."""
+    from ..data.page import Dictionary
+
+    dev = live_s.device
+    perm_h = perm.cpu().numpy()
+    seg_h = seg_s.cpu().numpy()
+    live_h = live_s.cpu().numpy()
+
+    def decode(cv: ColumnVal):
+        d = cv.data.cpu().numpy()[perm_h]
+        ok = _valid_of(cv, n).cpu().numpy()[perm_h] & live_h
+        if cv.dict is not None:
+            table = np.asarray(cv.dict.values, dtype=object)
+            d = table[np.clip(d, 0, max(len(table) - 1, 0))]
+        return d, ok
+
+    vals, vok = decode(arg)
+    keep = live_h & (seg_h < G)
+    gs = seg_h[keep]
+    v_k, ok_k = vals[keep], vok[keep]
+    bounds = np.flatnonzero(np.diff(gs)) + 1
+    group_ids = gs[np.concatenate([[0], bounds])] if len(gs) else np.zeros(0, np.int64)
+    runs = np.split(np.arange(len(gs)), bounds)
+    if order:
+        # ordered collection: each group's run sorted by the aggregate's
+        # ORDER BY keys
+        lex: list[np.ndarray] = []
+        for cv, asc, nulls_first in reversed(order):
+            d, ok = decode(cv)
+            null_rank, rank = _host_sort_rank(d[keep], ok[keep], None, asc, nulls_first)
+            lex.append(rank)
+            lex.append(null_rank)
+        runs = [r[np.lexsort([k[r] for k in lex])] if len(r) > 1 else r for r in runs]
+
+    def dedup_first(seq):
+        seen: set = set()
+        return [v for v in seq if not (v in seen or seen.add(v))]
+
+    results: list = []
+    res_ok: list[bool] = []
+    if spec.fn == "listagg":
+        sep = spec.sep if spec.sep is not None else ","
+        for r in runs:
+            parts = [str(v_k[i]) for i in r if ok_k[i]]
+            if spec.distinct:
+                parts = dedup_first(parts)
+            results.append(sep.join(parts))
+            res_ok.append(bool(parts))
+    elif spec.fn == "array_agg":
+        for r in runs:
+            vals_r = [_py(v_k[i]) for i in r if ok_k[i]]
+            if spec.distinct:
+                vals_r = dedup_first(vals_r)
+            results.append(tuple(vals_r))
+            res_ok.append(True)
+    else:  # map_agg(key, value): NULL keys skipped, the last value wins
+        kv, kok = decode(arg2)
+        kv_k, kok_k = kv[keep], kok[keep]
+        for r in runs:
+            mp: dict = {}
+            for i in r:
+                if ok_k[i]:
+                    mp[_py(v_k[i])] = _py(kv_k[i]) if kok_k[i] else None
+            try:  # canonical map form: pairs sorted by key (data/types.py)
+                items = sorted(mp.items())
+            except TypeError:
+                items = sorted(mp.items(), key=lambda it: repr(it[0]))
+            results.append(tuple(items))
+            res_ok.append(bool(mp))
+
+    # intern without sorting (tuples may mix None with values) and scatter
+    # into the [G] output frame
+    table: dict = {}
+    codes = np.zeros((G,), np.int32)
+    valid = np.zeros((G,), bool)
+    for gid, res, ok in zip(group_ids, results, res_ok):
+        codes[gid] = table.setdefault(res, len(table))
+        valid[gid] = ok
+    uniq = np.empty(max(len(table), 1), dtype=object)
+    uniq[0] = "" if spec.fn == "listagg" else ()
+    for val, code in table.items():
+        uniq[code] = val
+    return (
+        torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev), Dictionary(uniq),
+    )
+
+
 def _global_aggregate(agg_args, specs, live, agg_args2=None, agg_order=None):
     """No GROUP BY: one output row even over empty input (SQL semantics).
     The aggregates run through the fused segmented reduction with a single
-    segment."""
+    segment; value-sorted ones sort the rows by their argument alone."""
     n = live.shape[0]
     dev = live.device
-    if agg_args2 is None:
-        agg_args2 = [None] * len(specs)
     # dead rows carry segment id 1 == num_segments: the dead-lane convention
     seg = (~live).to(torch.int32)
-    out_aggs = _fused_aggs(agg_args, specs, seg, live, 1, n, agg_args2=agg_args2)
+    grouping = _SortedGrouping([], live, 1) if _value_sorted(specs) else None
+    out_aggs = _fused_aggs(
+        agg_args, specs, seg, live, 1, n, agg_args2=agg_args2,
+        grouping=grouping, agg_order=agg_order,
+    )
     out_live = torch.ones((1,), dtype=torch.bool, device=dev)
     return [], out_aggs, out_live, torch.ones((), dtype=torch.int32, device=dev)
 
