@@ -23,8 +23,14 @@ lineitem with the variance / correlation family, bool_and, a percentile, two
 count(DISTINCT) and approx_distinct, in the default setting and (Q18, the ten
 queries that need CASE / IN / LIKE / substring / DISTINCT, and that GROUP BY)
 with data_plane_kernels = false; every statement against the CPU engine,
-Q18, q12, q14, q16, q22 and the GROUP BY against numpy references.  Each
-phase prints one JSON line; the last line of standard output is `{"ok":
+Q18, q12, q14, q16, q22 and the GROUP BY against numpy references.  The
+`tpcds` phase runs every statement of tests/tpcds_queries.py at TPC-DS scale
+factor 1 (24 tables, generated from the seed by the copied generator) through
+a second card engine, in the default setting and (the window, round and
+concatenation statements) with data_plane_kernels = false, plus two window
+checksums over TPC-H; each statement against itself in the other kernel
+setting and, at SF 0.01, against `Engine(device="cpu")`; the checksums
+against numpy.  Each phase prints one JSON line; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
 exits 2.
@@ -1322,27 +1328,25 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
 def device_busy(engine, sql, runs: int = 5) -> dict:
     """Device time per statement from a torch.profiler trace of `runs` warm
     executions: busy ms (kernels and copies, summed) and the heaviest
-    kernels.  A profiler that cannot trace the card yields nulls — the trace
-    is a measurement, not a check."""
+    kernels.  Only the card's activity is traced, and its events are read
+    raw: the host-op tree that key_averages() builds costs seconds per
+    statement and adds nothing to a device-side sum.  A profiler that cannot
+    trace the card yields nulls — the trace is a measurement, not a check."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 engine.query(sql)
             torch.cuda.synchronize()
         per_kernel = {}
-        for ev in prof.key_averages():
-            # device-side entries only: a host op's entry repeats the time of
-            # the kernels it launched
-            if ev.device_type != DeviceType.CUDA:
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != DeviceType.CUDA:
                 continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            if us:
-                per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / runs
+            ms = ev.duration_ns() / 1e6 / runs
+            if ms:
+                per_kernel[ev.name()] = per_kernel.get(ev.name(), 0.0) + ms
     except Exception as ex:  # noqa: BLE001 - any profiler fault means "not measured"
         return {"device_busy_ms": None, "top_kernels": [], "profiler": repr(ex)[:200]}
     if not per_kernel:
@@ -1411,38 +1415,46 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
                        ordered, agg_tols)
         rows_agree(rows, cpu_rows, name, f"{what} cuda vs cpu engine", ordered, agg_tols,
                    hll_ref=cpu_rows)
-        warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine.query(sql)
-            torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t0) * 1e3)
-        for _ in range(runs):  # the same statement, layer by layer
-            t0 = time.perf_counter()
-            plan = engine.plan(sql)
-            t1 = time.perf_counter()
-            page = engine.executor.execute(plan)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            page.to_pylist()
-            t3 = time.perf_counter()
-            plan_ms.append((t1 - t0) * 1e3)
-            exec_ms.append((t2 - t1) * 1e3)
-            fetch_ms.append((t3 - t2) * 1e3)
-        busy = device_busy(engine, sql, runs)
-        warm_ms = statistics.median(warm)
-        idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
         emit({
             "phase": phase, "query": name, "variant": variant,
             "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
-            "cold_ms": cold_ms, "warm_ms": warm_ms, "device_idle_share": idle, **busy,
-            "plan_ms": statistics.median(plan_ms), "execute_ms": statistics.median(exec_ms),
-            "fetch_ms": statistics.median(fetch_ms), "cpu_engine_ms": cpu_ms,
+            "cold_ms": cold_ms, **statement_timing(engine, sql, runs), "cpu_engine_ms": cpu_ms,
             "first_run_retries": retries,
             "launches": launches[what],
             "dispatch": [[op, impl] for op, impl, _ in events],
         })
+
+
+def statement_timing(engine, sql, runs) -> dict:
+    """`runs` warm runs, `runs` runs layer by layer and a profiled set of
+    `runs` of one statement on the card (medians)."""
+    warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.query(sql)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(runs):  # the same statement, layer by layer
+        t0 = time.perf_counter()
+        plan = engine.plan(sql)
+        t1 = time.perf_counter()
+        page = engine.executor.execute(plan)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        page.to_pylist()
+        t3 = time.perf_counter()
+        plan_ms.append((t1 - t0) * 1e3)
+        exec_ms.append((t2 - t1) * 1e3)
+        fetch_ms.append((t3 - t2) * 1e3)
+    busy = device_busy(engine, sql, runs)
+    warm_ms = statistics.median(warm)
+    idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
+    return {
+        "warm_ms": warm_ms, "device_idle_share": idle, **busy,
+        "plan_ms": statistics.median(plan_ms), "execute_ms": statistics.median(exec_ms),
+        "fetch_ms": statistics.median(fetch_ms),
+    }
 
 
 def run_lines(engine, queries, variants, want, ordered=None, agg_tols=None):
@@ -1576,6 +1588,218 @@ def tpch_phase(engine, cpu_engine, scale):
     return counts
 
 
+# ------------------------------------------------ TPC-DS and window checksums
+
+TPCDS_FILE = Path(__file__).resolve().parent / "tests" / "tpcds_queries.py"
+# the 15 window statements and the four that need round / concat
+TPCDS_OPERATOR_QUERIES = (
+    "q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53", "q57", "q63", "q67", "q70",
+    "q86", "q89", "q98", "q02", "q78", "q05", "q84",
+)
+TPCDS_CROSS_SCALE = 0.01  # the card engine against Engine(device="cpu") at this scale
+# statements left out at the phase's scale, each for a fault the JAX package
+# shares (the same plan from `Engine.explain`, the same generated data); they
+# run at their cross-check scale only
+TPCDS_SKIPPED = {
+    "q04": "the generator's c_customer_id keeps 15 of 16 digits, so ten customers share "
+           "an id and q04's six-way join on customer_id grows by ~10x per join "
+           "(out of the card's 80 GB at SF 1)",
+    "q72": "the join order joins catalog_sales to inventory on the item alone "
+           "(~1e9 rows at SF 1) before the week equality",
+    "q85": "the join order joins customer_demographics to itself on education and "
+           "marital status first: a near-cross product (~1e11 rows at SF 1)",
+}
+# q85's near-cross product is 2.6e8 rows at SF 0.01 (40 GB on the host engine)
+TPCDS_CROSS = {"q85": 0.002}
+# ORDER BY ... LIMIT that is not total (stores and items share names and ids
+# in the generated data): only the first k columns — the sort keys — are
+# determined, so only they are compared
+TPCDS_TIED = {"q59": 3, "q65": 2}
+# window checksums over TPC-H SF 1, held against the numpy references below
+W1 = (
+    "select count(*), sum(rn), sum(rk), sum(run), sum(rn * rk) from ("
+    "select row_number() over (partition by o_custkey order by o_orderdate, o_orderkey) as rn, "
+    "rank() over (partition by o_custkey order by o_orderdate) as rk, "
+    "sum(o_totalprice) over (partition by o_custkey order by o_orderdate, o_orderkey "
+    "rows unbounded preceding) as run from orders)"
+)
+W2 = (
+    "select count(*), sum(rk), sum(lag_pk), count(lag_pk), sum(aq) from ("
+    "select rank() over (partition by l_orderkey order by l_extendedprice desc) as rk, "
+    "lag(l_partkey) over (partition by l_orderkey order by l_linenumber) as lag_pk, "
+    "avg(l_quantity) over (partition by l_suppkey) as aq from lineitem)"
+)
+
+
+def tpcds_queries() -> tuple:
+    """(QUERIES, ORDERED) of tests/tpcds_queries.py, read without importing
+    the tests package."""
+    ns: dict = {}
+    exec(compile(TPCDS_FILE.read_text(), str(TPCDS_FILE), "exec"), ns)
+    return ns["QUERIES"], ns["ORDERED"]
+
+
+def _run_starts(*keys) -> np.ndarray:
+    """For rows sorted by `keys`, the index of the first row of each row's
+    run of equal keys."""
+    n = len(keys[0])
+    new = np.zeros(n, dtype=bool)
+    new[:1] = True
+    for k in keys:
+        new[1:] |= k[1:] != k[:-1]
+    return np.maximum.accumulate(np.where(new, np.arange(n), 0))
+
+
+def w1_reference(orders: dict) -> list:
+    """W1 in numpy: row_number, rank and the running sum per customer, the
+    sums exact in python ints until the running sums' total."""
+    cust = orders["o_custkey"].astype(np.int64)
+    date = orders["o_orderdate"].astype(np.int64)
+    key = orders["o_orderkey"].astype(np.int64)
+    price = orders["o_totalprice"].astype(np.int64)
+    order = np.lexsort((key, date, cust))
+    cust, date, price = cust[order], date[order], price[order]
+    i = np.arange(len(cust))
+    rn = i - _run_starts(cust) + 1
+    rk = _run_starts(cust, date) - _run_starts(cust) + 1
+    running = np.cumsum(price)  # cents; the total stays far below 2^63
+    start = _run_starts(cust)
+    run = running - np.where(start > 0, running[start - 1], 0)
+    return [(len(cust), exact_sum(rn), exact_sum(rk), exact_sum(run) / 100.0,
+             exact_sum(rn * rk))]
+
+
+def w2_reference(li: dict) -> list:
+    """W2 in numpy: rank by price within an order, the previous line's part
+    and the supplier's mean quantity on every line, folded into sums."""
+    ok = li["l_orderkey"].astype(np.int64)
+    price = li["l_extendedprice"].astype(np.int64)
+    order = np.lexsort((-price, ok))
+    oks, prs = ok[order], price[order]
+    rk = _run_starts(oks, prs) - _run_starts(oks) + 1
+    order = np.lexsort((li["l_linenumber"].astype(np.int64), ok))
+    oks, pk = ok[order], li["l_partkey"].astype(np.int64)[order]
+    has_prev = np.zeros(len(oks), dtype=bool)
+    has_prev[1:] = oks[1:] == oks[:-1]
+    lag = pk[:-1][has_prev[1:]]
+    # every line carries its supplier's mean: the sum over lines is the sum
+    # over suppliers of count * mean, i.e. the total quantity
+    qty = li["l_quantity"].astype(np.int64)
+    return [(len(ok), exact_sum(rk), exact_sum(lag), int(has_prev.sum()),
+             exact_sum(qty) / 100.0)]
+
+
+def tied_rows_agree(got, want, name, what, ordered) -> None:
+    """rows_agree, except for a statement of TPCDS_TIED: there only its
+    sort-key columns are held."""
+    if name in TPCDS_TIED:
+        k = TPCDS_TIED[name]
+        got, want = [r[:k] for r in got], [r[:k] for r in want]
+    rows_agree(got, want, name, what, ordered)
+
+
+def tpcds_phase(engine, scale):
+    """Every statement of tests/tpcds_queries.py through `Engine.query` on
+    the card at `scale` in the default setting (`tpcds`), the window /
+    round / concat statements with data_plane_kernels = false
+    (`tpcds_operators`), and the window checksums W1 and W2 over the TPC-H
+    engine.  Each statement is held against the same statement in the other
+    kernel setting on the card, and against Engine(device="cpu") (kernels
+    off: sort joins and GROUP BYs) with a card engine at TPCDS_CROSS_SCALE;
+    W1 and W2 against numpy.  Returns the path's launch counts."""
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.connectors.tpcds import TPCDS_SCHEMAS, TpcdsConnector, tpcds_data
+    from trino_tpu_torch.runtime.engine import Engine
+
+    queries, ordered = tpcds_queries()
+    t0 = time.perf_counter()
+    rows = {t: int(len(next(iter(tpcds_data(t, scale).values())))) for t in sorted(TPCDS_SCHEMAS)}
+    gen_s = time.perf_counter() - t0
+    want = {"w1": w1_reference(tpch_data("orders", scale)),
+            "w2": w2_reference(tpch_data("lineitem", scale))}
+    emit({"phase": "tpcds", "step": "data", "scale": scale, "generate_s": round(gen_s, 3),
+          "tables": len(rows), "rows": rows, "cross_scale": TPCDS_CROSS_SCALE,
+          "cross_scale_of": TPCDS_CROSS, "skipped_at_scale": TPCDS_SKIPPED,
+          "sort_keys_only": TPCDS_TIED})
+
+    def ds_engine(device, sf):
+        e = Engine(device=device, default_catalog="tpcds")
+        e.register_catalog("tpcds", TpcdsConnector(sf))
+        return e
+
+    ds = ds_engine("cuda", scale)
+    # (card engine, host engine with kernels off) per cross-check scale
+    cross = {}
+    for sf in {TPCDS_CROSS_SCALE, *TPCDS_CROSS.values()}:
+        card, host = ds_engine("cuda", sf), ds_engine("cpu", sf)
+        host.execute("set session data_plane_kernels = false")
+        cross[sf] = (card, host)
+
+    def against_host(name, sql, flag) -> dict:
+        sf = TPCDS_CROSS.get(name, TPCDS_CROSS_SCALE)
+        card, host = cross[sf]
+        card.execute(f"set session data_plane_kernels = {flag}")
+        small = card.query(sql)
+        t0 = time.perf_counter()
+        host_rows = host.query(sql)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        tied_rows_agree(small, host_rows, name,
+                        f"{name} at SF {sf}: cuda (kernels {flag}) vs cpu engine", ordered)
+        return {"cross_scale": sf, "cross_rows": len(host_rows), "cpu_engine_ms": host_ms}
+
+    names = tuple(n for n in sorted(queries) if n not in TPCDS_SKIPPED)
+    ds_variants = [("tpcds", "true", names, []),
+                   ("tpcds_operators", "false", TPCDS_OPERATOR_QUERIES, [])]
+    w_queries = {"w1": W1, "w2": W2}
+    # every count to 0 just before the path, read just after
+    reset_kernel_counts()
+    t_path = time.perf_counter()
+    ds_lines, launches = run_lines(ds, queries, ds_variants, {}, ordered)
+    w_lines, w_launches = run_lines(engine, w_queries, [("tpcds", "true", tuple(w_queries), [])],
+                                    want)
+    counts = kernel_counts()
+    path_s = time.perf_counter() - t_path
+    for k in ("segment_reduce", "hash_build", "hash_probe"):
+        if counts[k] < 1:
+            fail(f"tpcds path never launched {k}: {counts}")
+
+    for (variant, flag, name, sql, cold_ms, events, retries), eng, runs in (
+        [(ln, ds, 3) for ln in ds_lines] + [(ln, engine, 3) for ln in w_lines]
+    ):
+        what = f"{name}/{variant}"
+        eng.execute(f"set session data_plane_kernels = {flag}")
+        got = eng.query(sql)
+        other = "false" if flag == "true" else "true"
+        eng.execute(f"set session data_plane_kernels = {other}")
+        t0 = time.perf_counter()
+        other_rows = eng.query(sql)
+        other_ms = (time.perf_counter() - t0) * 1e3
+        eng.execute(f"set session data_plane_kernels = {flag}")
+        tied_rows_agree(got, other_rows, name, f"{what} vs data_plane_kernels = {other}",
+                        ordered)
+        if name in want:
+            rows_agree(got, want[name], name, f"{what} vs numpy reference")
+            checks = {"numpy_reference": True}
+        else:
+            checks = against_host(name, sql, flag)
+        emit({
+            "phase": "tpcds", "query": name, "variant": variant, "data_plane_kernels": flag,
+            "rows": len(got), "correct": True, "cold_ms": cold_ms,
+            **statement_timing(eng, sql, runs), f"kernels_{other}_ms": other_ms, **checks,
+            "first_run_retries": retries,
+            "launches": (launches if eng is ds else w_launches)[what],
+            "dispatch": [[op, impl] for op, impl, _ in events],
+        })
+    # the statements left out at `scale` run at their cross-check scale only
+    for name, reason in TPCDS_SKIPPED.items():
+        emit({"phase": "tpcds", "query": name, "variant": "cross_scale_only",
+              "data_plane_kernels": "true", "skipped_at_scale": reason, "correct": True,
+              **against_host(name, queries[name], "true")})
+    del ds, cross
+    torch.cuda.empty_cache()
+    return counts, path_s
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -1687,14 +1911,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts = main_path_phase(engine, cpu_engine, args.scale)
     tpch_counts = tpch_phase(engine, cpu_engine, args.scale)
+    del cpu_engine
+    torch.cuda.empty_cache()
+    t_tpcds = time.perf_counter()
+    tpcds_counts, tpcds_path_s = tpcds_phase(engine, args.scale)
+    tpcds_s = time.perf_counter() - t_tpcds
     for r in rows:
-        r["launches"] = counts[r["name"]] + tpch_counts[r["name"]]
-        r["launches_by_path"] = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]]}
+        by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
+                   "tpcds": tpcds_counts[r["name"]]}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
         if r["launches"] < 1:
             fail(f"kernel {r['name']} was never launched on the main path")
 
     emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
-    emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
+          "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -55,5 +55,5 @@ def test_unported_statements_and_patterns_name_their_roadmap_item(planners):
         port.execute("create table t (a bigint)")
     from trino_tpu_torch.ops.matchrec import compile_pattern
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
         compile_pattern(None)

@@ -18,7 +18,7 @@ packed transfer.
 The port handles TableScan, Values, Filter, Project, Compact, Aggregate,
 Distinct, Join (every kind, cross joins against a single row included),
 Concat (UNION ALL, and the union under INTERSECT / EXCEPT / UNION), Sort,
-TopN, Limit and EnforceSingleRow; other nodes raise NotImplementedError
+TopN, Limit, EnforceSingleRow and Window; other nodes raise NotImplementedError
 naming their ROADMAP item.
 
 Two more facts ride the packed `required` transfer: EnforceSingleRow's live
@@ -46,13 +46,13 @@ from ..ops.relops import (
 )
 from ..plan.nodes import (
     Aggregate, Compact, Concat, Distinct, EnforceSingleRow, Filter, Join, Limit,
-    PlanNode, Project, Sort, TableScan, TopN, Values,
+    PlanNode, Project, Sort, TableScan, TopN, Values, Window,
 )
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
 _ROADMAP_ITEM = {
-    "Unnest": "A.8", "Window": "A.8", "MatchRecognize": "A.8",
+    "Unnest": "A.8b", "MatchRecognize": "A.8b",
     "Exchange": "A.10", "RemoteSource": "A.10",
 }
 
@@ -355,6 +355,14 @@ def _trace_plan(
     def report(nid: int, value) -> None:
         required[nid] = value
 
+    def check_limbed(stage: _Stage, what: str) -> _Stage:
+        # the reference refuses the high limb of a decimal128 column through
+        # a union or a window (its exec/compiler.py check_limbed); so does
+        # the port
+        if any(cv.data2 is not None for cv in stage.cols):
+            raise NotImplementedError(f"decimal128 columns through {what}")
+        return stage
+
     def _try_fused_aggregate(node: Aggregate, nid: int) -> Optional[_Stage]:
         """An Aggregate whose input is a straight Filter/Project chain over a
         TableScan collapses into one fused pass (ops/cuda/fused.py) that
@@ -561,16 +569,27 @@ def _trace_plan(
             return _Stage(s.cols, limit_mask(s.live, node.count))
 
         if isinstance(node, Concat):
-            stages = [emit(c) for c in node.inputs]
-            for st in stages:
-                # the reference refuses the high limb here too
-                if any(cv.data2 is not None for cv in st.cols):
-                    raise NotImplementedError("decimal128 columns through union")
+            stages = [check_limbed(emit(c), "union") for c in node.inputs]
             cols = [
                 _concat_columns([st.cols[ci] for st in stages], t)
                 for ci, t in enumerate(node.output_types)
             ]
             return _Stage(cols, torch.cat([st.live for st in stages]))
+
+        if isinstance(node, Window):
+            from ..ops.window import window_eval
+
+            s = check_limbed(emit(node.child), "window")
+            dev = s.live.device
+            part = [eval_expr(k, s.cols, s.capacity, dev) for k in node.partition_by]
+            okeys = [eval_expr(k.expr, s.cols, s.capacity, dev) for k in node.order_by]
+            ospecs = [SortSpec(k.ascending, k.nulls_first) for k in node.order_by]
+            argv = [
+                tuple(eval_expr(a, s.cols, s.capacity, dev) for a in c.args)
+                for c in node.calls
+            ]
+            cols, live = window_eval(s.cols, s.live, part, okeys, ospecs, node.calls, argv)
+            return _Stage(cols, live)
 
         if isinstance(node, Values):
             dev = torch.device(device)
@@ -586,7 +605,7 @@ def _trace_plan(
         name = type(node).__name__
         raise NotImplementedError(
             f"plan node {name} is not ported to trino_tpu_torch yet "
-            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.8-A.11')})"
+            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.8b-A.11')})"
         )
 
     events = _kernels.begin_capture()

@@ -12,14 +12,19 @@ Value model: every IR expression evaluates to a ColumnVal
 NULL semantics are Kleene 3-valued logic for and/or, strict for everything
 else (reference: sql/ir + interpreter semantics).
 
-The port carries the operators the 22 TPC-H queries reach: literals
-(string literals as one-entry dictionaries), field references, arithmetic
-and comparisons (single-lane and decimal128), string comparisons, IN lists,
-LIKE and substring through host tables over the dictionaries, CASE (numeric,
-decimal128 and varchar branches), coalesce, casts between numeric types,
-Kleene and/or/not, is_null, date arithmetic and field extraction.  Every
-other operator raises NotImplementedError naming the ROADMAP item that ports
-it.
+The port carries the scalar surface of the reference: literals (string
+literals as one-entry dictionaries), field references, arithmetic and
+comparisons (single-lane and decimal128), the float math library, bitwise
+ops, nullif / greatest / least, CASE (numeric, decimal128 and varchar
+branches), coalesce, casts (numeric, and from varchar by a host parse of
+each distinct value), try_cast, Kleene and/or/not, is_null, date arithmetic,
+extraction and truncation.  String functions (comparisons, IN, LIKE,
+substring, length, upper / lower / trim, replace, pads, split_part, the
+regexp family, concatenation) run once per distinct dictionary value on the
+host and the table is gathered by code on the device — the reference's
+design, and its DictionaryAwarePageProjection fast path made the only path.
+JSON, maps, rows, arrays and lambdas raise NotImplementedError naming
+ROADMAP A.8b; prepared-statement parameters name A.9.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from ..data.page import Column, Dictionary
-from ..data.types import BOOLEAN, DATE, Type, VARCHAR
+from ..data.types import BOOLEAN, DATE, Type, VARCHAR, date_to_days
 from ..plan.ir import Call, CaseWhen, Const, FieldRef, InListIr, IrExpr, LikeIr, Param
 
 __all__ = [
@@ -40,7 +45,7 @@ __all__ = [
     "translate_codes",
 ]
 
-_NOT_PORTED = "not ported to trino_tpu_torch yet (ROADMAP A.8: remaining SQL surface)"
+_NOT_PORTED = "not ported to trino_tpu_torch yet (ROADMAP A.8b: nested types, JSON and lambdas)"
 
 
 @dataclass
@@ -102,7 +107,10 @@ def eval_expr(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) -> Colu
     if isinstance(e, LikeIr):
         return _like(e, cols, n, dev)
     if isinstance(e, Param):
-        raise NotImplementedError(f"{type(e).__name__} expressions are {_NOT_PORTED}")
+        raise NotImplementedError(
+            "Param expressions (prepared statements) are not ported to "
+            "trino_tpu_torch yet (ROADMAP A.9)"
+        )
     raise NotImplementedError(f"eval: {e}")
 
 
@@ -203,22 +211,30 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
             None,
             DATE,
         )
-    if op not in (
-        "neg", "abs", "eq", "ne", "lt", "le", "gt", "ge",
-        "add", "sub", "mul", "div", "mod",
-    ):
+    if op == "length":
+        a = eval_expr(e.args[0], cols, n, dev)
+        table = np.asarray([len(str(v)) for v in a.dict.values], dtype=np.int64)
+        return ColumnVal(_gather_table(table, a), a.valid, None, e.type)
+    if op in _STR_UNARY:
+        return _dict_map_str(eval_expr(e.args[0], cols, n, dev), _STR_UNARY[op], e.type)
+    if op in _STRING_FNS:
+        return _string_fn(op, e, [eval_expr(a, cols, n, dev) for a in e.args])
+    if op == "try_cast":
+        return _try_cast(eval_expr(e.args[0], cols, n, dev), e.type)
+    if op in _SCALAR_OPS:
+        # date_trunc's unit is a literal read from the IR, never a lane
+        operands = e.args[:1] if op == "date_trunc" else e.args
+        return _scalar(op, e, [eval_expr(a, cols, n, dev) for a in operands])
+    if op not in _ARITH:
         raise NotImplementedError(f"operator {op} is {_NOT_PORTED}")
 
     args = [eval_expr(a, cols, n, dev) for a in e.args]
     if any(v.dict is not None for v in args):
         if op in _COMPARE:
             return _string_compare(op, args)
-        raise NotImplementedError(f"string {op} is {_NOT_PORTED}")
+        raise NotImplementedError(f"string {op} (no such operator over varchar)")
 
-    valid = None
-    for v in args:
-        valid = _and_valid(valid, v.valid)
-
+    valid = _all_valid(args)
     if any(v.data2 is not None for v in args) or (
         # single-lane decimal arithmetic whose RESULT type exceeds int64
         # digits: compute at 128-bit width rather than silently wrapping
@@ -258,6 +274,147 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
     return ColumnVal(out, valid, None, e.type)
 
 
+def _all_valid(args: Sequence[ColumnVal]) -> Optional[torch.Tensor]:
+    valid = None
+    for v in args:
+        valid = _and_valid(valid, v.valid)
+    return valid
+
+
+_ARITH = frozenset({
+    "neg", "abs", "eq", "ne", "lt", "le", "gt", "ge", "add", "sub", "mul", "div", "mod",
+})
+
+# float math over f64 lanes; a domain error is NULL, not NaN (SQL semantics)
+_F64_UNARY = {
+    "ln": torch.log, "log2": torch.log2, "log10": torch.log10, "exp": torch.exp,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan, "asin": torch.asin,
+    "acos": torch.acos, "atan": torch.atan,
+    "cbrt": lambda x: torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0),
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+}
+
+_BITWISE = {
+    "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
+    "bitwise_xor": torch.bitwise_xor, "shift_left": torch.bitwise_left_shift,
+    "shift_right": torch.bitwise_right_shift,
+}
+
+_DATE_FIELDS = ("extract_quarter", "extract_dow", "extract_doy", "extract_week")
+
+_SCALAR_OPS = frozenset({
+    "round", "floor", "ceil", "sqrt", "power", "atan2", "sign", "truncate",
+    "nullif", "greatest", "least", "date_trunc", "last_day_of_month", "date_diff_days",
+    *_F64_UNARY, *_BITWISE, *_DATE_FIELDS,
+})
+
+
+def _literal(e_arg, what: str):
+    if not isinstance(e_arg, Const):
+        raise NotImplementedError(f"{what} must be a literal")
+    return e_arg.value
+
+
+def _f64(v: ColumnVal) -> torch.Tensor:
+    return v.data.to(torch.float64)
+
+
+def _scalar(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
+    """Numeric, conditional and date functions over single-lane columns
+    (reference: trino_tpu/ops/expr.py _call, the math / conditional / date
+    blocks).  The planner hands decimals to the float functions as doubles."""
+    if any(v.data2 is not None for v in args):
+        raise NotImplementedError(f"decimal128 through {op}")
+    valid = _all_valid(args)
+    if op == "nullif":
+        a, b = args
+        if a.dict is not None or b.dict is not None:
+            eq_mask = _string_compare("eq", [a, b]).data
+        else:
+            x, y = _numeric_align(a.data, b.data)
+            eq_mask = x == y
+        # NULLIF nulls only where b is non-NULL and equal
+        both = eq_mask if b.valid is None else (eq_mask & b.valid)
+        return ColumnVal(a.data, ~both if a.valid is None else (a.valid & ~both), a.dict, a.type)
+    if any(v.dict is not None for v in args):
+        raise NotImplementedError(f"{op} over varchar")
+    if op == "round":
+        x = args[0].data
+        if len(e.args) == 2:
+            f = 10.0 ** int(_literal(e.args[1], "round() digits"))
+            return ColumnVal(torch.round(x * f) / f, valid, None, e.type)
+        return ColumnVal(torch.round(x), valid, None, e.type)
+    if op in ("floor", "ceil", "sqrt"):
+        fn = {"floor": torch.floor, "ceil": torch.ceil, "sqrt": torch.sqrt}[op]
+        return ColumnVal(fn(_f64(args[0])), valid, None, e.type)
+    if op in ("power", "atan2"):
+        fn = torch.pow if op == "power" else torch.atan2
+        return ColumnVal(fn(_f64(args[0]), _f64(args[1])), valid, None, e.type)
+    if op in _F64_UNARY:
+        out = _F64_UNARY[op](_f64(args[0]))
+        return ColumnVal(out, _and_valid(valid, ~torch.isnan(out)), None, e.type)
+    if op == "sign":
+        return ColumnVal(torch.sign(args[0].data), valid, None, e.type)
+    if op == "truncate":
+        x = _f64(args[0])
+        if len(e.args) == 2:
+            f = 10.0 ** int(_literal(e.args[1], "truncate() scale"))
+            return ColumnVal(torch.trunc(x * f) / f, valid, None, e.type)
+        return ColumnVal(torch.trunc(x), valid, None, e.type)
+    if op in _BITWISE:
+        a, b = (v.data.to(torch.int64) for v in args)
+        return ColumnVal(_BITWISE[op](a, b), valid, None, e.type)
+    if op in ("greatest", "least"):
+        fn = torch.maximum if op == "greatest" else torch.minimum
+        target = _torch_dtype(e.type)
+        acc = args[0].data.to(target)
+        for v in args[1:]:
+            acc = fn(acc, v.data.to(target))
+        return ColumnVal(acc, valid, None, e.type)  # NULL if any argument is
+    if op == "date_diff_days":
+        a, b = args
+        return ColumnVal(b.data.to(torch.int64) - a.data.to(torch.int64), valid, None, e.type)
+    a = args[0]
+    days = a.data.to(torch.int64)
+    y, m, d = _civil_from_days(days)
+    one = torch.ones_like(m)
+    if op in _DATE_FIELDS:
+        if op == "extract_quarter":
+            out = _fdiv(m + 2, 3)
+        elif op == "extract_dow":
+            # ISO day of week 1..7 (Monday 1); 1970-01-01 was a Thursday
+            out = torch.remainder(days + 3, 7) + 1
+        else:
+            jan1 = _days_from_civil(y, one, one)
+            if op == "extract_doy":
+                out = days - jan1 + 1
+            else:  # the reference's week number: weeks from the Monday on or before Jan 4
+                jan4 = jan1 + 3
+                anchor = jan4 - torch.remainder(jan4 + 3, 7)
+                out = torch.clamp(_fdiv(days - anchor, 7) + 1, min=1)
+        return ColumnVal(out, a.valid, None, e.type)
+    if op == "last_day_of_month":
+        ny = torch.where(m == 12, y + 1, y)
+        nm = torch.where(m == 12, one, m + 1)
+        out = _days_from_civil(ny, nm, one) - 1
+        return ColumnVal(out.to(a.data.dtype), a.valid, None, DATE)
+    # date_trunc: the unit is a literal the planner folded
+    unit = _literal(e.args[1], "date_trunc unit")
+    if unit == "year":
+        out = _days_from_civil(y, one, one)
+    elif unit == "quarter":
+        out = _days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    elif unit == "month":
+        out = _days_from_civil(y, m, one)
+    elif unit == "week":  # ISO week start (Monday)
+        out = days - torch.remainder(days + 3, 7)
+    elif unit == "day":
+        out = days
+    else:
+        raise NotImplementedError(f"date_trunc unit {unit}")
+    return ColumnVal(out.to(a.data.dtype), a.valid, None, DATE)
+
+
 def _numeric_align(a: torch.Tensor, b: torch.Tensor):
     if a.dtype == b.dtype:
         return a, b
@@ -270,11 +427,51 @@ def _round_div(d: torch.Tensor, div: int) -> torch.Tensor:
     return torch.sign(d) * ((torch.abs(d) + div // 2) // div)
 
 
+def _parse(s: str, target: Type):
+    """One varchar value as `target` (raises ValueError / KeyError when it
+    does not parse): dates ISO, decimals rounded half away from zero at the
+    target's scale (the reference's try_cast goes through a double)."""
+    s = s.strip()
+    if target == DATE:
+        return date_to_days(s)
+    if target.is_decimal:
+        return int(round(float(s) * (10.0**target.scale)))
+    if target.is_floating:
+        return float(s)
+    if target == BOOLEAN:
+        return {"true": True, "false": False}[s.lower()]
+    return int(s)
+
+
+def _try_cast(a: ColumnVal, target: Type) -> ColumnVal:
+    """varchar -> T with failures as NULL (reference: TryCastFunction):
+    parsed once per distinct dictionary value on the host, gathered by
+    code."""
+    parsed, ok = [], []
+    for v in a.dict.values:
+        try:
+            parsed.append(_parse(str(v), target))
+            ok.append(True)
+        except (ValueError, KeyError, OverflowError):
+            parsed.append(0)
+            ok.append(False)
+    data = _gather_table(np.asarray(parsed, dtype=target.np_dtype), a)
+    ok_lane = _gather_table(np.asarray(ok, dtype=np.bool_), a)
+    return ColumnVal(data, _and_valid(a.valid, ok_lane), None, target)
+
+
 def _cast(a: ColumnVal, target: Type, n: int) -> ColumnVal:
     if a.type == target:
         return a
-    if target == VARCHAR or a.dict is not None:
-        raise NotImplementedError(f"varchar casts are {_NOT_PORTED}")
+    if target == VARCHAR:
+        raise NotImplementedError("cast to varchar")  # refused by the reference too
+    if a.dict is not None:
+        # varchar -> numeric / date / boolean: a host parse of each distinct
+        # value; a value that does not parse is an error (try_cast makes it
+        # NULL)
+        table = np.asarray([_parse(str(v), target) for v in a.dict.values],
+                           dtype=target.np_dtype)
+        return ColumnVal(_gather_table(table, a), a.valid, None, target)
     # DECIMAL rescaling on int64 lanes (reference: spi/type/DecimalConversions
     # — rescale by powers of ten, round half away from zero when narrowing)
     if a.data2 is not None:
@@ -538,6 +735,127 @@ def _gather_table(table: np.ndarray, col: ColumnVal) -> torch.Tensor:
     return torch.from_numpy(table).to(col.data.device).index_select(
         0, col.data.to(torch.int64).clamp(0, len(table) - 1)
     )
+
+
+_STR_UNARY = {
+    "upper": str.upper,
+    "lower": str.lower,
+    "trim": str.strip,
+    "ltrim": str.lstrip,
+    "rtrim": str.rstrip,
+    "reverse_str": lambda s: s[::-1],
+}
+
+_STRING_FNS = frozenset({
+    "replace", "strpos", "starts_with", "lpad", "rpad", "split_part",
+    "regexp_like", "regexp_replace", "regexp_extract", "concat_str",
+})
+
+
+def _dict_map_str_nullable(a: ColumnVal, fn, out_type) -> ColumnVal:
+    """Like _dict_map_str, but fn may return None (SQL NULL — e.g. a regex
+    that does not match): those codes' validity merges into the column's
+    mask."""
+    raw = [fn(str(v)) for v in a.dict.values]
+    ok = np.asarray([r is not None for r in raw], dtype=np.bool_)
+    vals = np.asarray([r if r is not None else "" for r in raw], dtype=object)
+    uniq, remap = np.unique(vals, return_inverse=True)
+    codes = _gather_table(remap.astype(np.int32).reshape(-1), a)
+    return ColumnVal(
+        codes, _and_valid(a.valid, _gather_table(ok, a)), Dictionary(uniq), out_type
+    )
+
+
+def _dict_map_str(a: ColumnVal, fn, out_type) -> ColumnVal:
+    """str -> str applied once per distinct dictionary VALUE; the rows gather
+    the remapped codes (the reference's DictionaryAwarePageProjection does
+    the same per-distinct-value trick)."""
+    vals = [fn(str(v)) for v in a.dict.values]
+    uniq, remap = np.unique(np.asarray(vals, dtype=object), return_inverse=True)
+    codes = _gather_table(remap.astype(np.int32).reshape(-1), a)
+    return ColumnVal(codes, a.valid, Dictionary(uniq), out_type)
+
+
+def _string_fn(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
+    """String functions with extra (literal) arguments, evaluated on the
+    dictionary on the host; scalar results gather through a host table."""
+    a = args[0]
+
+    def lit(i: int):
+        return _literal(e.args[i], f"argument {i + 1} of {op}")
+
+    def str_out(fn) -> ColumnVal:
+        return _dict_map_str(a, fn, e.type)
+
+    def scalar_out(values, dtype) -> ColumnVal:
+        return ColumnVal(_gather_table(np.asarray(values, dtype=dtype), a), a.valid, None, e.type)
+
+    if op == "replace":
+        old, new = str(lit(1)), str(lit(2))
+        return str_out(lambda s: s.replace(old, new))
+    if op == "strpos":
+        needle = str(lit(1))
+        return scalar_out([str(v).find(needle) + 1 for v in a.dict.values], np.int64)
+    if op == "starts_with":
+        prefix = str(lit(1))
+        return scalar_out([str(v).startswith(prefix) for v in a.dict.values], np.bool_)
+    if op in ("lpad", "rpad"):
+        width = int(lit(1))
+        pad = str(lit(2)) if len(e.args) > 2 else " "
+
+        def _pad(s: str) -> str:
+            if len(s) >= width:
+                return s[:width]
+            fill = (pad * width)[: width - len(s)]
+            return fill + s if op == "lpad" else s + fill
+
+        return str_out(_pad)
+    if op == "split_part":
+        delim, ix = str(lit(1)), int(lit(2))
+
+        def _split(s: str):
+            parts = s.split(delim)
+            # an index out of range is NULL (Trino semantics), not ''
+            return parts[ix - 1] if 1 <= ix <= len(parts) else None
+
+        return _dict_map_str_nullable(a, _split, e.type)
+    if op == "regexp_like":
+        pat = re.compile(str(lit(1)))
+        return scalar_out([bool(pat.search(str(v))) for v in a.dict.values], np.bool_)
+    if op == "regexp_replace":
+        pat = re.compile(str(lit(1)))
+        repl = str(lit(2)) if len(e.args) > 2 else ""
+        return str_out(lambda s: pat.sub(repl, s))
+    if op == "regexp_extract":
+        pat = re.compile(str(lit(1)))
+        group = int(lit(2)) if len(e.args) > 2 else 0
+
+        def _ext(s: str):
+            # no match / a group that did not take part is NULL
+            m = pat.search(s)
+            return m.group(group) if m else None
+
+        return _dict_map_str_nullable(a, _ext, e.type)
+    # concat_str: n-ary over dictionary-coded and literal operands.  A pair
+    # of dictionaries combines into at most |A| * |B| distinct outputs.
+    out = a
+    for nxt_ir, nxt in zip(e.args[1:], args[1:]):
+        if isinstance(nxt_ir, Const):
+            out = _dict_map_str(out, lambda s, _l=str(nxt_ir.value): s + _l, e.type)
+            continue
+        if len(out.dict) * len(nxt.dict) > 1_000_000:
+            raise NotImplementedError("concat of two high-cardinality string columns")
+        pair_vals = np.asarray(
+            [str(x) + str(y) for x in out.dict.values for y in nxt.dict.values], dtype=object
+        )
+        uniq, remap = np.unique(pair_vals, return_inverse=True)
+        width = max(len(nxt.dict), 1)
+        pair_code = out.data.to(torch.int64) * width + nxt.data.to(torch.int64)
+        codes = _gather_table(
+            remap.astype(np.int32).reshape(-1), ColumnVal(pair_code, None)
+        )
+        out = ColumnVal(codes, _and_valid(out.valid, nxt.valid), Dictionary(uniq), e.type)
+    return out
 
 
 def _in_list(e: InListIr, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:

@@ -633,10 +633,7 @@ def _fused_aggs(
                 add(SegRed("sum", x * x, valid)), add_count(valid),
             ))
         else:
-            raise NotImplementedError(
-                f"aggregate {spec.fn} is not ported to trino_tpu_torch yet "
-                "(ROADMAP A.8: remaining SQL surface)"
-            )
+            raise NotImplementedError(f"aggregate {spec.fn} (the reference has none either)")
 
     def reduce(rs):
         _kernels.record_dispatch(
