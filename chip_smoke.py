@@ -30,7 +30,14 @@ a second card engine, in the default setting and (the window, round and
 concatenation statements) with data_plane_kernels = false, plus two window
 checksums over TPC-H; each statement against itself in the other kernel
 setting and, at SF 0.01, against `Engine(device="cpu")`; the checksums
-against numpy.  Each phase prints one JSON line; the last line of standard output is `{"ok":
+against numpy.  The `statements` phase writes through `Engine.execute` into a
+`memory` catalog on the TPC-H engine (CTAS of lineitem and orders, DELETE,
+UPDATE, INSERT … SELECT, MERGE through the hash join, a rolled-back and a
+committed transaction, PREPARE / EXECUTE, a view, an empty table, EXPLAIN
+[ANALYZE] of a write), holds every step against numpy, checks that device
+memory keeps one generation of each written table, and runs the sequence
+again at SF 0.01 on the card and on `Engine(device="cpu")`, every result and
+final table compared.  Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
 exits 2.
@@ -926,21 +933,19 @@ def dec(unscaled: int, scale: int) -> Decimal:
     return Decimal(unscaled).scaleb(-scale)
 
 
-def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
-    """Q1, Q6, the min/max query, Q3 and the topn statement over the
-    generated columns, in numpy and python ints — independent of the
-    engine's code.  Sums are int64 (np.add.at), never float weights."""
-    import datetime
-
+def q1_reference(li: dict, keep=None, disc=None) -> list:
+    """Q1 over the generated lineitem columns in python ints: over the rows
+    of `keep` (default: Q1's own date predicate), with `disc` (scaled by
+    100) in place of l_discount when given — the statements phase's table
+    after its DELETE and UPDATE."""
     qty, price = li["l_quantity"].astype(np.int64), li["l_extendedprice"].astype(np.int64)
-    disc, tax = li["l_discount"].astype(np.int64), li["l_tax"].astype(np.int64)
+    disc = (li["l_discount"] if disc is None else disc).astype(np.int64)
+    tax = li["l_tax"].astype(np.int64)
     ship = li["l_shipdate"].astype(np.int64)
     rf = np.asarray(li["l_returnflag"]).astype("U1")
     ls = np.asarray(li["l_linestatus"]).astype("U1")
-    epoch = datetime.date(1970, 1, 1)
-    day = lambda y, m, d: (datetime.date(y, m, d) - epoch).days
-
-    keep = ship <= day(1998, 12, 1) - 90
+    if keep is None:
+        keep = ship <= _days(1998, 12, 1) - 90
     disc_price = price * (100 - disc)
     charge = disc_price * (100 + tax)
     q1 = []
@@ -956,6 +961,23 @@ def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
                 exact_sum(qty[m]) / 100.0 / c, exact_sum(price[m]) / 100.0 / c,
                 exact_sum(disc[m]) / 100.0 / c, c,
             ))
+    return q1
+
+
+def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
+    """Q1, Q6, the min/max query, Q3 and the topn statement over the
+    generated columns, in numpy and python ints — independent of the
+    engine's code.  Sums are int64 (np.add.at), never float weights."""
+    import datetime
+
+    price = li["l_extendedprice"].astype(np.int64)
+    qty, disc = li["l_quantity"].astype(np.int64), li["l_discount"].astype(np.int64)
+    ship = li["l_shipdate"].astype(np.int64)
+    rf = np.asarray(li["l_returnflag"]).astype("U1")
+    epoch = datetime.date(1970, 1, 1)
+    day = lambda y, m, d: (datetime.date(y, m, d) - epoch).days
+
+    q1 = q1_reference(li)
     m6 = (ship >= day(1994, 1, 1)) & (ship < day(1995, 1, 1)) & (disc >= 5) & (disc <= 7) & (qty < 2400)
     q6 = [(dec(exact_sum((price * disc)[m6]), 4) if m6.any() else None,)]
     qmm = []
@@ -1328,17 +1350,33 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
 def device_busy(engine, sql, runs: int = 5) -> dict:
     """Device time per statement from a torch.profiler trace of `runs` warm
     executions: busy ms (kernels and copies, summed) and the heaviest
-    kernels.  Only the card's activity is traced, and its events are read
+    kernels."""
+    return traced_busy(lambda: engine.query(sql), runs)
+
+
+def traced_busy(fn, runs: int) -> dict:
+    """Device time per call of fn() from a torch.profiler trace of `runs`
+    calls.  Only the card's activity is traced, and its events are read
     raw: the host-op tree that key_averages() builds costs seconds per
     statement and adds nothing to a device-side sum.  A profiler that cannot
-    trace the card yields nulls — the trace is a measurement, not a check."""
+    trace the card yields nulls — the trace is a measurement, not a check;
+    a fault of fn() itself is raised."""
+    errors = []
+
+    def guarded():
+        try:
+            fn()
+        except BaseException as ex:
+            errors.append(ex)
+            raise
+
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
-                engine.query(sql)
+                guarded()
             torch.cuda.synchronize()
         per_kernel = {}
         for ev in prof.profiler.kineto_results.events():
@@ -1348,6 +1386,8 @@ def device_busy(engine, sql, runs: int = 5) -> dict:
             if ms:
                 per_kernel[ev.name()] = per_kernel.get(ev.name(), 0.0) + ms
     except Exception as ex:  # noqa: BLE001 - any profiler fault means "not measured"
+        if errors:
+            raise errors[0]
         return {"device_busy_ms": None, "top_kernels": [], "profiler": repr(ex)[:200]}
     if not per_kernel:
         return {"device_busy_ms": None, "top_kernels": [], "profiler": "no device time traced"}
@@ -1800,6 +1840,398 @@ def tpcds_phase(engine, scale):
     return counts, path_s
 
 
+# --------------------------------- the statement surface over a memory catalog
+
+LI_COPY = ("l_orderkey, l_linenumber, l_quantity, l_extendedprice, l_discount, l_tax, "
+           "l_returnflag, l_linestatus, l_shipdate")
+ORD_COPY = "o_orderkey, o_custkey, o_totalprice, o_orderdate"
+SHIP_CUT = "1998-09-02"  # Q1's bound: date '1998-12-01' - interval '90' day
+FRESH_KEYS = 10_000  # MERGE's new order keys, past the largest one of the scale
+
+
+def on_copy(sql: str) -> str:
+    return sql.replace("from lineitem", "from memory.li")
+
+
+Q01_NO_DATE = Q01.replace("where l_shipdate <= date '1998-12-01' - interval '90' day\n", "")
+LI_TOTALS = "select count(*), sum(l_quantity), sum(l_discount) from memory.li"
+ORD_TOTALS = "select count(*), sum(o_totalprice) from memory.ord"
+ORD_TOP = "select o_orderkey from memory.ord order by o_orderkey desc limit 10"
+PREPARED = "select count(*), sum(l_extendedprice) from memory.li where l_quantity < ?"
+MERGE = """
+merge into memory.ord t using (
+  select o_orderkey as k, cast(o_totalprice + 1.00 as decimal(12,2)) as p
+  from tpch.orders where o_orderkey % 7 = 0
+  union all select k, p from memory.fresh) s
+on t.o_orderkey = s.k
+when matched then update set o_totalprice = s.p
+when not matched then insert (o_orderkey, o_custkey, o_totalprice, o_orderdate)
+  values (s.k, 0, s.p, date '1998-12-31')
+"""
+EXPLAIN_WRITE = "insert into memory.e select l_orderkey from memory.li where l_orderkey < 8"
+# (step, statements run once in order, reads run after them)
+STATEMENT_STEPS = (
+    ("ctas_lineitem", (f"create table memory.li as select {LI_COPY} from lineitem",),
+     {"q01": on_copy(Q01), "q06": on_copy(Q06), "topn": on_copy(TOPN)}),
+    ("delete", (f"delete from memory.li where l_shipdate > date '{SHIP_CUT}'",),
+     {"q01_no_date": on_copy(Q01_NO_DATE)}),
+    ("update", ("update memory.li set l_discount = l_discount + 0.01 where l_returnflag = 'R'",),
+     {"q01": on_copy(Q01)}),
+    ("insert", (f"insert into memory.li select {LI_COPY} from tpch.lineitem "
+                "where l_orderkey < 60000",), {"totals": LI_TOTALS}),
+    ("ctas_orders", (f"create table memory.ord as select {ORD_COPY} from orders",),
+     {"orders": ORD_TOTALS}),
+    ("merge", (MERGE,), {"orders": ORD_TOTALS, "top_keys": ORD_TOP}),
+    ("rollback", ("start transaction",
+                  "delete from memory.ord where o_orderdate < date '1995-01-01'", "rollback"),
+     {"orders": ORD_TOTALS}),
+    ("commit", ("start transaction", "delete from memory.ord where o_custkey = 0", "commit"),
+     {"orders": ORD_TOTALS, "top_keys": ORD_TOP}),
+    ("prepare", (f"prepare cheap from {PREPARED}",),
+     {"execute": "execute cheap using 24", "literal": PREPARED.replace("?", "24")}),
+    ("view", ("create view memory.q1v as " + on_copy(Q01),), {"view": "select * from memory.q1v"}),
+    ("empty", ("create table memory.e (x bigint)",), {"empty": "select count(*), sum(x) from memory.e"}),
+    ("explain", ("explain " + EXPLAIN_WRITE, "explain analyze " + EXPLAIN_WRITE),
+     {"e": "select count(*), sum(x) from memory.e"}),
+)
+WRITTEN_TABLES = ("li", "ord", "e", "fresh")
+
+
+def fresh_source(max_key: int) -> dict:
+    """MERGE's new rows: FRESH_KEYS order keys past `max_key`, prices (cents)
+    from a seed."""
+    rng = np.random.default_rng(10)
+    return {"k": np.arange(max_key + 1, max_key + 1 + FRESH_KEYS, dtype=np.int64),
+            "p": rng.integers(100, 50_000_000, FRESH_KEYS).astype(np.int64)}
+
+
+def add_memory_catalog(engine, fresh) -> None:
+    """Register a writable `memory` catalog on `engine`, holding only
+    MERGE's source rows."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.spi import ColumnSchema
+    from trino_tpu_torch.data.types import BIGINT, parse_type
+
+    mem = MemoryConnector()
+    mem.create_table("fresh", [ColumnSchema("k", BIGINT),
+                               ColumnSchema("p", parse_type("decimal(12,2)"))])
+    mem.insert("fresh", dict(fresh))
+    engine.register_catalog("memory", mem)
+
+
+def memory_engine(device, scale, fresh):
+    """A new engine over TPC-H at `scale` with the `memory` catalog."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.runtime.engine import Engine
+
+    e = Engine(device=device)
+    e.register_catalog("tpch", TpchConnector(scale))
+    add_memory_catalog(e, fresh)
+    return e
+
+
+def dispatch_count(op: str, impl: str) -> int:
+    from trino_tpu_torch.ops import kernels
+
+    return int(kernels._DISPATCH.value(op, impl))
+
+
+def run_statements(engine, measure: bool) -> list:
+    """The statement sequence once through `engine.execute`, in order.
+    Returns one record per step: each statement's result, each read's rows
+    and, with `measure`, the timings (on the card) and the launches of the
+    statements and of each read's first run."""
+    cuda = engine.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    steps = []
+    for step, writes, reads in STATEMENT_STEPS:
+        rec = {"step": step, "writes": [], "reads": {}, "launches": dict.fromkeys(KERNEL_NAMES, 0)}
+
+        def count(fn):
+            before = kernel_counts() if measure else None
+            out = fn()
+            if measure:
+                after = kernel_counts()
+                for k in KERNEL_NAMES:
+                    rec["launches"][k] += after[k] - before[k]
+            return out
+
+        for sql in writes:
+            engine._last_txn_info = None
+            joins = {impl: dispatch_count("join", impl) for impl in ("cuda", "sort", "fallback")}
+            if not measure:
+                rec["writes"].append({"sql": sql, "result": engine.execute(sql)})
+                continue
+            out, walls = [], []
+
+            def once():
+                sync()
+                t0 = time.perf_counter()
+                out.append(engine.execute(sql))
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+
+            busy = count(lambda: traced_busy(once, 1))
+            if not out:  # the profiler failed before the statement ran
+                count(once)
+            info = engine._last_txn_info
+            w = {"sql": " ".join(sql.split())[:90], "result": out[0], "wall_ms": walls[0],
+                 **engine.last_write_split,
+                 "commit_ms": None if info is None else info["commit_ms"],
+                 "txn_outcome": None if info is None else info["outcome"],
+                 "device_busy_ms": busy["device_busy_ms"],
+                 "device_idle_share": None if busy["device_busy_ms"] is None
+                 else 1.0 - busy["device_busy_ms"] / walls[0],
+                 "top_kernels": busy["top_kernels"],
+                 "joins": {impl: dispatch_count("join", impl) - n for impl, n in joins.items()}}
+            rec["writes"].append(w)
+        for name, sql in reads.items():
+            if not measure:
+                rec["reads"][name] = {"rows": engine.execute(sql)}
+                continue
+            sync()
+            t0 = time.perf_counter()
+            rows = count(lambda: engine.execute(sql))
+            sync()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            r = {"rows": rows, "cold_ms": cold_ms,
+                 "upload_ms": engine.executor.last_upload_ms,
+                 "first_run_retries": list(engine.executor.last_retries)}
+            warm = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                engine.execute(sql)
+                sync()
+                warm.append((time.perf_counter() - t0) * 1e3)
+            r["warm_ms"] = statistics.median(warm)
+            busy = traced_busy(lambda: engine.execute(sql), 3)
+            r["device_busy_ms"] = busy["device_busy_ms"]
+            r["device_idle_share"] = (None if busy["device_busy_ms"] is None
+                                      else 1.0 - busy["device_busy_ms"] / r["warm_ms"])
+            r["top_kernels"] = busy["top_kernels"]
+            rec["reads"][name] = r
+        if measure:
+            rec["memory_allocated"] = torch.cuda.memory_allocated()
+        steps.append(rec)
+    return steps
+
+
+def cache_bytes(engine, catalog: str) -> tuple:
+    """(device bytes, {table: generations}) of the executor's cached scan
+    columns of `catalog`."""
+    seen, total, gens = set(), 0, {}
+    for key, col in engine.executor._table_cols.items():
+        if key[0] != catalog:
+            continue
+        gens.setdefault(key[1], set()).add(key[-1])
+        for t in (col.data, col.valid, col.data2):
+            if t is not None and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+    return total, gens
+
+
+def table_bytes(conn, table: str) -> int:
+    """Device bytes of one generation of a memory table: every column's
+    lanes at its type's width (VARCHAR as int32 codes), its validity where
+    it holds NULLs."""
+    schema = conn.table_schema(table)
+    n = max(conn.estimated_row_count(table) or 0, 1)
+    total = 0
+    for c in schema.columns:
+        arr = conn._data[table][c.name]
+        total += n * (4 if c.type.is_string else np.dtype(c.type.np_dtype).itemsize)
+        if isinstance(arr, np.ma.MaskedArray) and np.ma.getmaskarray(arr).any():
+            total += n
+    return total
+
+
+def statements_reference(li: dict, orders: dict, fresh: dict) -> dict:
+    """What each step's statements and reads must give, in numpy and python
+    ints over the generated columns."""
+    ship = li["l_shipdate"].astype(np.int64)
+    keep = ship <= _days(1998, 9, 2)
+    rf = np.asarray(li["l_returnflag"]).astype("U1")
+    disc2 = li["l_discount"].astype(np.int64) + (rf == "R")
+    qty = li["l_quantity"].astype(np.int64)
+    extra = li["l_orderkey"] < 60000
+    okey, tp = orders["o_orderkey"].astype(np.int64), orders["o_totalprice"].astype(np.int64)
+    matched = okey % 7 == 0
+    merged_sum = exact_sum(tp) + int(matched.sum()) * 100 + exact_sum(fresh["p"])
+    top = [(int(k),) for k in np.sort(np.concatenate([okey, fresh["k"]]))[::-1][:10]]
+    # the copy after the INSERT: the kept rows (discounts updated), then the
+    # inserted ones
+    final = {c: np.concatenate([np.asarray(li[c])[keep], np.asarray(li[c])[extra]])
+             for c in ("l_quantity", "l_extendedprice", "l_tax", "l_shipdate",
+                       "l_returnflag", "l_linestatus")}
+    final_disc = np.concatenate([disc2[keep], li["l_discount"][extra]])
+    qty2 = np.concatenate([qty[keep], qty[extra]])
+    price2 = np.concatenate([li["l_extendedprice"][keep], li["l_extendedprice"][extra]])
+    cheap = qty2 < 2400
+    ok8 = np.concatenate([li["l_orderkey"][keep], li["l_orderkey"][extra]])
+    ok8 = ok8[ok8 < 8].astype(np.int64)
+    return {
+        "deleted": int((~keep).sum()),
+        "updated": int((keep & (rf == "R")).sum()),
+        "inserted": int(extra.sum()),
+        "q01_updated": q1_reference(li, keep, disc2),
+        "q01_final": q1_reference(final, disc=final_disc),
+        "li_totals": [(int(keep.sum() + extra.sum()),
+                       dec(exact_sum(qty[keep]) + exact_sum(qty[extra]), 2),
+                       dec(exact_sum(disc2[keep]) + exact_sum(li["l_discount"][extra]), 2))],
+        "orders": [(len(okey), dec(exact_sum(tp), 2))],
+        "merged": int(matched.sum()) + FRESH_KEYS,
+        "orders_merged": [(len(okey) + FRESH_KEYS, dec(merged_sum, 2))],
+        "top_merged": top,
+        "orders_committed": [(len(okey), dec(merged_sum - exact_sum(fresh["p"]), 2))],
+        "top_committed": [(int(k),) for k in np.sort(okey)[::-1][:10]],
+        "cheap": [(int(cheap.sum()), dec(exact_sum(price2[cheap]), 2))],
+        "e": [(len(ok8), exact_sum(ok8))],
+    }
+
+
+def statements_phase(engine, scale):
+    """The statement surface on the card: STATEMENT_STEPS through
+    `Engine.execute` over a `memory` catalog at TPC-H `scale`, every step
+    against numpy, then the same steps at SF 0.01 on a card engine and on
+    `Engine(device="cpu")` with every result and final table compared.
+    Returns (the path's launch counts, phase seconds)."""
+    from trino_tpu_torch.connectors.tpch import tpch_data
+
+    t_phase = time.perf_counter()
+    li, orders = tpch_data("lineitem", scale), tpch_data("orders", scale)
+    fresh = fresh_source(int(orders["o_orderkey"].max()))
+    want = statements_reference(li, orders, fresh)
+    main_want = reference_rows(li, orders, tpch_data("customer", scale))
+    # the TPC-H engine of the earlier phases: its lineitem and orders columns
+    # are on the card already
+    engine.execute("set session data_plane_kernels = true")
+    add_memory_catalog(engine, fresh)
+    mem_engine = engine
+    n_lineitem = len(li["l_orderkey"])
+    del li
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tpch_before, _ = cache_bytes(mem_engine, "tpch")
+    steps = run_statements(mem_engine, measure=True)
+    counts = {k: sum(st["launches"][k] for st in steps) for k in KERNEL_NAMES}
+    by_step = {st["step"]: st for st in steps}
+
+    def result(step, i=0):
+        return by_step[step]["writes"][i]["result"]
+
+    def read(step, name):
+        return by_step[step]["reads"][name]["rows"]
+
+    # every step against numpy (and the copy against tpch.lineitem itself)
+    for name, sql in (("q01", Q01), ("q06", Q06), ("topn", TOPN)):
+        rows_match(read("ctas_lineitem", name), main_want[name], f"statements {name} over the copy")
+        rows_match(read("ctas_lineitem", name), engine.query(sql),
+                   f"statements {name} over the copy vs tpch.lineitem")
+    rows_match(result("ctas_lineitem"), [(n_lineitem,)], "statements CTAS lineitem count")
+    rows_match(result("delete"), [(want["deleted"],)], "statements DELETE count")
+    rows_match(read("delete", "q01_no_date"), main_want["q01"], "statements Q1 after DELETE")
+    rows_match(result("update"), [(want["updated"],)], "statements UPDATE count")
+    rows_match(read("update", "q01"), want["q01_updated"], "statements Q1 after UPDATE")
+    rows_match(result("insert"), [(want["inserted"],)], "statements INSERT count")
+    rows_match(read("insert", "totals"), want["li_totals"], "statements totals after INSERT")
+    rows_match(result("ctas_orders"), [(want["orders"][0][0],)], "statements CTAS orders count")
+    rows_match(read("ctas_orders", "orders"), want["orders"], "statements orders copy")
+    rows_match(result("merge"), [(want["merged"],)], "statements MERGE count")
+    rows_match(read("merge", "orders"), want["orders_merged"], "statements orders after MERGE")
+    rows_match(read("merge", "top_keys"), want["top_merged"], "statements top keys after MERGE")
+    joins = by_step["merge"]["writes"][0]["joins"]
+    if joins["cuda"] < 4 or joins["sort"] or joins["fallback"]:
+        fail(f"statements MERGE: its joins took {joins}, not the hash path")
+    rows_match(read("rollback", "orders"), want["orders_merged"], "statements ROLLBACK")
+    rows_match(result("commit", 1), [(FRESH_KEYS,)], "statements committed DELETE count")
+    rows_match(read("commit", "orders"), want["orders_committed"], "statements COMMIT")
+    rows_match(read("commit", "top_keys"), want["top_committed"], "statements top keys after COMMIT")
+    rows_match(read("prepare", "execute"), read("prepare", "literal"), "statements EXECUTE")
+    rows_match(read("prepare", "literal"), want["cheap"], "statements prepared statement")
+    rows_match(read("view", "view"), want["q01_final"], "statements view over Q1")
+    rows_match(read("empty", "empty"), [(0, None)], "statements empty table")
+    explain, analyze = (w["result"] for w in by_step["explain"]["writes"])
+    if not explain or not str(explain[0][0]).startswith("Write[Insert"):
+        fail(f"statements EXPLAIN of a write printed {explain[:2]}")
+    footer = [r[0] for r in analyze if str(r[0]).startswith("-- txn:")]
+    if len(footer) != 1 or "outcome=committed" not in footer[0]:
+        fail(f"statements EXPLAIN ANALYZE of a write: txn footer {footer}")
+    rows_match(read("explain", "e"), want["e"], "statements EXPLAIN ANALYZE's write")
+    for k in KERNEL_NAMES:
+        if counts[k] < 1:
+            fail(f"statements path never launched {k}: {counts}")
+
+    # device memory: at most one generation of each written table cached
+    torch.cuda.synchronize()
+    after_alloc = torch.cuda.memory_allocated()
+    tpch_after, _ = cache_bytes(mem_engine, "tpch")
+    mem_cached, gens = cache_bytes(mem_engine, "memory")
+    conn = mem_engine.catalogs.get("memory")
+    one_gen = sum(table_bytes(conn, t) for t in WRITTEN_TABLES)
+    growth = after_alloc - base - (tpch_after - tpch_before)
+    slack = 64 << 20
+    if any(len(g) > 1 for g in gens.values()) or mem_cached > one_gen \
+            or growth > one_gen + slack:
+        fail(f"statements: device memory holds more than one generation of the written "
+             f"tables: growth {growth} B, cached {mem_cached} B, one generation {one_gen} B, "
+             f"generations {gens}")
+    lines = [("statements", "true", n, on_copy(sql), 0, ()) for n, sql in
+             (("q01", Q01), ("topn", TOPN))]
+    calls = check_main_path_calls(mem_engine, lines + [(
+        "statements", "true", "merge_join",
+        "select count(*), sum(t.o_totalprice) from memory.ord t join memory.li l "
+        "on t.o_orderkey = l.l_orderkey", 0, ())], require_all=False)
+
+    for st in steps:
+        emit({"phase": "statements", "step": st["step"], "scale": scale, "correct": True,
+              "writes": [{k: v for k, v in w.items() if k != "result"} | {
+                  "result": w["result"] if len(w["result"]) <= 2 else f"{len(w['result'])} lines"}
+                  for w in st["writes"]],
+              "reads": {n: {k: v for k, v in r.items() if k != "rows"} | {"rows": len(r["rows"])}
+                        for n, r in st["reads"].items()},
+              "launches": st["launches"], "memory_allocated": st["memory_allocated"]})
+    emit({"phase": "statements", "step": "memory", "base_bytes": base, "after_bytes": after_alloc,
+          "tpch_cache_growth_bytes": tpch_after - tpch_before, "growth_bytes": growth,
+          "memory_cached_bytes": mem_cached, "one_generation_bytes": one_gen,
+          "generations": {t: sorted(g) for t, g in gens.items()}})
+    emit({"phase": "statements", "step": "kernel_calls", "calls": calls})
+    del steps, by_step
+    mem_engine.execute("drop view memory.q1v")
+    for t in WRITTEN_TABLES:  # their device columns leave with them
+        mem_engine.execute(f"drop table memory.{t}")
+    torch.cuda.empty_cache()
+
+    # the same sequence at SF 0.01 on the card and on the host
+    small = tpch_data("orders", 0.01)
+    fresh_small = fresh_source(int(small["o_orderkey"].max()))
+    t0 = time.perf_counter()
+    card, host = (memory_engine(d, 0.01, fresh_small) for d in ("cuda", "cpu"))
+    card_steps, host_steps = run_statements(card, False), run_statements(host, False)
+    compared = 0
+    for a, b in zip(card_steps, host_steps):
+        for i, (wa, wb) in enumerate(zip(a["writes"], b["writes"])):
+            if not wa["sql"].startswith("explain"):
+                rows_match(wa["result"], wb["result"], f"statements SF 0.01 {a['step']} #{i}")
+        for name in a["reads"]:
+            rows_match(a["reads"][name]["rows"], b["reads"][name]["rows"],
+                       f"statements SF 0.01 {a['step']}/{name}: cuda vs cpu engine")
+            compared += 1
+    finals = {}
+    for t in WRITTEN_TABLES:
+        sql = f"select * from memory.{t}"
+        got, exp = card.execute(sql), host.execute(sql)
+        rows_match(unordered(got), unordered(exp), f"statements SF 0.01 final memory.{t}")
+        finals[t] = len(exp)
+    emit({"phase": "statements", "step": "cross_scale", "scale": 0.01, "correct": True,
+          "reads_compared": compared, "final_rows": finals,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    del card, host
+    torch.cuda.empty_cache()
+    return counts, time.perf_counter() - t_phase
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -1916,9 +2348,10 @@ def main(argv=None) -> int:
     t_tpcds = time.perf_counter()
     tpcds_counts, tpcds_path_s = tpcds_phase(engine, args.scale)
     tpcds_s = time.perf_counter() - t_tpcds
+    statements_counts, statements_s = statements_phase(engine, args.scale)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
-                   "tpcds": tpcds_counts[r["name"]]}
+                   "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -1926,7 +2359,8 @@ def main(argv=None) -> int:
 
     emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
     emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
-          "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1)})
+          "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
+          "statements_seconds": round(statements_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

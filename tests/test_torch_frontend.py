@@ -50,9 +50,22 @@ def test_plan_json_round_trips_in_the_port(planners):
 
 
 def test_unported_statements_and_patterns_name_their_roadmap_item(planners):
-    _, port = planners
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        port.execute("create table t (a bigint)")
+    import torch
+
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.spi import ColumnSchema
+    from trino_tpu_torch.data.types import BIGINT
+    from trino_tpu_torch.ops.expr import eval_expr
+    from trino_tpu_torch.plan.ir import Param
+
+    # statements run since A.9a (tests/test_torch_statements.py); what is
+    # left of the storage plane names its item: the prepared-statement fast
+    # path's runtime parameters (EXECUTE substitutes values into the
+    # statement instead) and bucketed memory tables
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
+        eval_expr(Param(0, BIGINT), [], 1, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        MemoryConnector().create_table("t", [ColumnSchema("a", BIGINT)], bucketed_by=["a"])
     from trino_tpu_torch.ops.matchrec import compile_pattern
 
     with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):

@@ -27,7 +27,16 @@ bad = sorted(
 )
 print("MODULES", len(names))
 print("BAD", bad)
+print("NAMES", ",".join(names))
 """
+
+# the statement surface and its storage plane: each must be walked (and so
+# imported) by the check above
+STATEMENT_MODULES = (
+    "trino_tpu_torch.connectors.memory", "trino_tpu_torch.runtime.dml",
+    "trino_tpu_torch.runtime.txn", "trino_tpu_torch.runtime.security",
+    "trino_tpu_torch.utils.flightrecorder", "trino_tpu_torch.runtime.engine",
+)
 
 
 def _env():
@@ -52,6 +61,8 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     lines = dict(l.split(" ", 1) for l in proc.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 30
     assert lines["BAD"] == "[]", lines["BAD"]
+    walked = set(lines["NAMES"].split(","))
+    assert set(STATEMENT_MODULES) <= walked, sorted(set(STATEMENT_MODULES) - walked)
 
 
 @pytest.mark.parametrize(

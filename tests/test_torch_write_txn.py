@@ -1,0 +1,142 @@
+"""The port's write transactions (runtime/txn.py) on a plain engine, the
+cases of tests/test_write_txn.py that need no coordinator, journal, fault
+injector or parquet: two-writer conflict arbitration with a retry, the
+exhausted conflict budget, the staging gauge on commit and abort, and the
+EXPLAIN ANALYZE `-- txn:` footer of a write."""
+
+import numpy as np
+import pytest
+try:  # arrow before torch: loaded after it, arrow's parquet writer crashes the process
+    import pyarrow  # noqa: F401
+except ImportError:
+    pass
+import torch
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _restore_kernel_policy():
+    """Every port statement re-applies its session's kernel policy, which is
+    process-global: put back what the next test in this worker expects."""
+    from trino_tpu_torch.ops import kernels
+
+    saved = kernels.get_policy()
+    yield
+    kernels.set_policy(saved)
+
+
+def _seed(conn, n: int = 5):
+    from trino_tpu_torch.connectors.spi import ColumnSchema
+    from trino_tpu_torch.data.types import BIGINT
+
+    conn.create_table("t", [ColumnSchema("k", BIGINT), ColumnSchema("v", BIGINT)])
+    conn.insert("t", {"k": np.arange(n, dtype=np.int64),
+                      "v": np.arange(n, dtype=np.int64) * 10})
+
+
+def _engine(conn=None):
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.runtime.engine import Engine
+
+    conn = conn if conn is not None else MemoryConnector()
+    eng = Engine(default_catalog="memory", device="cpu")
+    eng.register_catalog("memory", conn)
+    return eng, conn
+
+
+def _table_rows(conn):
+    cols = conn.read_split(conn.get_splits("t", 1)[0], ["k", "v"])
+    return sorted(zip(cols["k"].tolist(), cols["v"].tolist()))
+
+
+def test_two_writer_conflict_retries_then_wins():
+    from trino_tpu_torch.runtime.txn import TXN_TOTAL, run_write
+
+    eng, conn = _engine()
+    _seed(conn)
+    rival, _ = _engine(conn)
+    conflicts0 = TXN_TOTAL.value("conflict")
+    fired = []
+
+    def attempt(txn):
+        # deterministic race: the rival commits between this writer's
+        # snapshot and its commit, exactly once
+        if not fired:
+            fired.append(1)
+            rival.execute("insert into t values (999, 9990)")
+        txn.stage_insert({"k": np.array([50], dtype=np.int64),
+                          "v": np.array([500], dtype=np.int64)})
+        return 1
+
+    assert run_write(eng, "memory", "t", "insert", attempt) == 1
+    assert TXN_TOTAL.value("conflict") == conflicts0 + 1
+    rows = _table_rows(conn)
+    assert (50, 500) in rows and (999, 9990) in rows
+    assert eng._last_txn_info["retries"] == 1
+    assert eng._last_txn_info["outcome"] == "committed"
+    assert eng.execute("select count(*), sum(v) from t") == [(7, 100 + 500 + 9990)]
+
+
+def test_conflict_budget_exhausted_raises_typed_error():
+    from trino_tpu_torch.runtime.txn import WriteConflict, run_write
+
+    eng, conn = _engine()
+    _seed(conn)
+    rival, _ = _engine(conn)
+    eng.session.set("write_conflict_retries", "1")
+
+    def always_racing(txn):
+        rival.execute("insert into t values (777, 7770)")  # every attempt
+        txn.stage_insert({"k": np.array([51], dtype=np.int64),
+                          "v": np.array([510], dtype=np.int64)})
+        return 1
+
+    with pytest.raises(WriteConflict, match=r"\[WRITE_CONFLICT\]"):
+        run_write(eng, "memory", "t", "insert", always_racing)
+    assert (51, 510) not in _table_rows(conn), "loser's staging leaked"
+    assert _table_rows(conn).count((777, 7770)) == 2
+
+
+def test_staging_gauge_drains_on_commit_and_abort():
+    from trino_tpu_torch.runtime.txn import STAGING_BYTES, TXN_TOTAL, run_write
+
+    eng, conn = _engine()
+    _seed(conn)
+    base = STAGING_BYTES.value()
+    eng.execute("insert into t values (7, 70)")
+    assert STAGING_BYTES.value() == base  # committed: fully drained
+    aborted0 = TXN_TOTAL.value("aborted")
+    seen = []
+
+    def stage_then_fail(txn):
+        txn.stage_insert({"k": np.arange(100, dtype=np.int64),
+                          "v": np.arange(100, dtype=np.int64)})
+        seen.append(STAGING_BYTES.value())
+        raise RuntimeError("statement failed after staging")
+
+    with pytest.raises(RuntimeError, match="after staging"):
+        run_write(eng, "memory", "t", "insert", stage_then_fail)
+    assert seen and seen[0] >= base + 1600  # 100 rows x two int64 columns
+    assert STAGING_BYTES.value() == base  # aborted: drained as well
+    assert TXN_TOTAL.value("aborted") == aborted0 + 1
+    assert eng._last_txn_info["outcome"] == "aborted"
+    assert len(_table_rows(conn)) == 6  # the failed statement left no rows
+
+
+def test_explain_analyze_write_txn_footer():
+    eng, conn = _engine()
+    _seed(conn)
+    lines = [r[0] for r in eng.execute(
+        "explain analyze insert into t select k + 10, v from t"
+    )]
+    assert lines[0] == "Write[Insert -> t]"
+    txn_lines = [l for l in lines if l.startswith("-- txn:")]
+    assert len(txn_lines) == 1
+    footer = txn_lines[0]
+    assert "outcome=committed" in footer
+    assert "op=insert" in footer
+    assert "table=memory.t" in footer
+    assert "-- output rows: 5," in "\n".join(lines)
+    # EXPLAIN ANALYZE really executed the write
+    assert len(_table_rows(conn)) == 10

@@ -8,7 +8,9 @@ holds both packages (a test, a migration script) passes plain arrays.
 
 With them, any intermediate page of the reference (a scan page, a
 post-filter stage, an aggregate's input) can be pushed through the port's
-counterpart of the next operator.
+counterpart of the next operator.  `memory_catalog_from_numpy` carries
+whole tables: the same numpy columns the reference's MemoryConnector holds
+become a port MemoryConnector.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ from . import resolve_device
 from .data.page import Column, Dictionary, Page, _to_device
 from .data.types import Type
 
-__all__ = ["column_from_numpy", "page_from_reference", "page_from_lanes"]
+__all__ = [
+    "column_from_numpy", "page_from_reference", "page_from_lanes",
+    "memory_catalog_from_numpy",
+]
 
 
 def _lane_dtype(type_: Type, arr: np.ndarray) -> np.dtype:
@@ -127,3 +132,25 @@ def page_from_reference(
         valid = None if mask is None or not mask.any() else ~mask
         cols.append(column_from_numpy(t, codes, valid, d.values, device=dev))
     return Page(tuple(cols))
+
+
+def memory_catalog_from_numpy(tables: dict):
+    """A port `MemoryConnector` holding `tables`: {name: (schema, {column:
+    ndarray})}, where schema lists (column name, SQL type name) pairs such as
+    ("l_quantity", "decimal(12,2)").  The arrays take the connector's host
+    layout: object arrays of str for VARCHAR, day counts for DATE, scaled
+    int64 lanes for short decimals, `np.ma.MaskedArray` where a column holds
+    NULLs.  A column of the schema missing from the dict, or a dict entry
+    outside the schema, raises KeyError."""
+    from .connectors.memory import MemoryConnector
+    from .connectors.spi import ColumnSchema
+    from .data.types import parse_type
+
+    conn = MemoryConnector()
+    for name, (schema, data) in tables.items():
+        extra = set(data) - {c for c, _ in schema}
+        if extra:
+            raise KeyError(f"table {name}: columns {sorted(extra)} are not in its schema")
+        conn.create_table(name, [ColumnSchema(c, parse_type(t)) for c, t in schema])
+        conn.insert(name, {c: data[c] for c, _ in schema})
+    return conn

@@ -30,6 +30,7 @@ sort path).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -80,6 +81,14 @@ def _node_ids(plan: PlanNode) -> dict[int, PlanNode]:
     return out
 
 
+def _generation(conn, table: str):
+    """Write generation of `table` (scan caches key on it): per table where
+    the connector keeps one, else the connector-wide counter writable
+    connectors bump, else 0."""
+    per_table = getattr(conn, "table_generation", None)
+    return per_table(table) if per_table is not None else getattr(conn, "generation", 0)
+
+
 def _pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -101,9 +110,18 @@ class LocalExecutor:
         self.device = resolve_device(device)
         self._table_cols: dict = {}
         self._table_pages: dict = {}
-        # (caps, joins sent to the sort path) that completed a query, keyed
-        # by plan: repeat executions skip the growth retries
-        self._learned_caps: dict[PlanNode, tuple[dict[int, int], frozenset]] = {}
+        # (catalog, table, generation) of tables that scanned empty: their
+        # pages hold one dead row (kernels need a capacity of at least 1)
+        self._table_empty: set = set()
+        # host ms spent reading and uploading table columns in the last
+        # execute() call (0 when every column was already on the device)
+        self.last_upload_ms = 0.0
+        # (scan generations, caps, joins sent to the sort path) that
+        # completed a query, keyed by plan: repeat executions over the same
+        # table generations skip the growth retries.  A write starts the
+        # plan over from stats-fed caps (a table that grew 1000-fold would
+        # otherwise need more doublings than the retry loop allows)
+        self._learned_caps: dict[PlanNode, tuple[tuple, dict[int, int], frozenset]] = {}
         self.last_retries: list[dict] = []
 
     # ------------------------------------------------------------- table IO
@@ -119,43 +137,81 @@ class LocalExecutor:
         uploaded lazily, once each (the scan-level projection pushdown the
         reference does via ConnectorPageSource lazy blocks).  `types` and
         `scan_id` keep the reference's call shape; dynamic filters, the one
-        thing that reads them there, are not ported yet."""
+        thing that reads them there, are not ported yet.
+
+        Columns are cached per write generation of the table (writable
+        connectors bump it on every write).  When a table uploads at a new
+        generation, its columns of older generations leave the card.  An
+        empty table scans as one dead row."""
         conn = self.catalogs.get(catalog)
         schema = conn.table_schema(table)
-        gen = getattr(conn, "generation", 0)  # writable connectors bump this
+        gen = _generation(conn, table)
         key_of = lambda c: (catalog, table, c, gen)
         missing = [c for c in columns if key_of(c) not in self._table_cols]
         if missing:
+            t0 = time.perf_counter()
+            self._drop_stale(catalog, table, gen)
             data = conn.read_split(conn.get_splits(table, 1)[0], list(missing))
             for c in missing:
                 arr = data[c]
                 if len(arr) == 0:
-                    raise NotImplementedError(
-                        f"scan of empty table {catalog}.{table} (ROADMAP A.9)"
-                    )
+                    t = schema.type_of(c)
+                    arr = np.zeros((1,), dtype=object if t.is_string else t.np_dtype)
+                    if t.is_string:
+                        arr[:] = ""
+                    self._table_empty.add((catalog, table, gen))
                 self._table_cols[key_of(c)] = Column.from_numpy(
                     schema.type_of(c), arr, device=self.device
                 )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last_upload_ms += (time.perf_counter() - t0) * 1e3
         page_key = (catalog, table, tuple(columns), gen)
         cached = self._table_pages.get(page_key)
         if cached is not None:
             return cached
-        page = Page(tuple(self._table_cols[key_of(c)] for c in columns), None)
+        cols = tuple(self._table_cols[key_of(c)] for c in columns)
+        live = None
+        if (catalog, table, gen) in self._table_empty:
+            live = torch.zeros((1,), dtype=torch.bool, device=self.device)
+        page = Page(cols, live)
         self._table_pages[page_key] = page
         return page
+
+    def _drop_stale(self, catalog: str, table: str, gen) -> None:
+        """Forget the device columns and pages of `catalog.table` at every
+        generation but `gen` (a loop of writes would otherwise pin one copy
+        of the table per write)."""
+        stale = lambda k: k[0] == catalog and k[1] == table and k[-1] != gen
+        for cache in (self._table_cols, self._table_pages):
+            for k in [k for k in cache if stale(k)]:
+                del cache[k]
+        self._table_empty = {k for k in self._table_empty if not stale(k)}
+
+    def drop_table_cache(self, catalog: str, table: str) -> None:
+        """Forget every cached generation of `catalog.table` (after a write
+        to it commits, or it is dropped)."""
+        self._drop_stale(catalog, table, object())
 
     # ------------------------------------------------------------ execution
     def execute(self, plan: PlanNode) -> Page:
         nodes = _node_ids(plan)
         inputs: dict[str, Page] = {}
+        self.last_upload_ms = 0.0
         for i, n in nodes.items():
             if isinstance(n, TableScan):
                 inputs[str(i)] = self.table_page(
                     n.catalog, n.table, n.column_names, n.output_types, scan_id=i
                 )
-        caps, sort_joins = self._learned_caps.get(plan, (None, frozenset()))
-        if caps is None:
-            caps = self._initial_caps(nodes, inputs)
+        gens = tuple(
+            _generation(self.catalogs.get(n.catalog), n.table)
+            for n in nodes.values() if isinstance(n, TableScan)
+        )
+        learned = self._learned_caps.get(plan)
+        if learned is not None and learned[0] == gens:
+            _, caps, sort_joins = learned
+        else:
+            caps, sort_joins = self._initial_caps(nodes, inputs), frozenset()
         # capacity bucketing: every cap lands on a pow2 tier.  Also snapshots
         # the dict: the retry loop below mutates caps in place, and learned
         # dicts must not alias it.
@@ -197,12 +253,43 @@ class LocalExecutor:
                     tight = _pow2(req * 2 + 1024)
                     if tight < caps[nid]:
                         caps[nid] = tight
-                self._learned_caps[plan] = (caps, sort_joins)
+                self._learned_caps[plan] = (gens, caps, sort_joins)
                 return out_page
             self.last_retries.append(overflow)
             for nid, req in overflow.items():
                 caps[nid] = _pow2(max(req, caps[nid] * 2))
         raise RuntimeError(f"capacity retry loop did not converge: {caps}")
+
+    def explain_analyze(self, plan: PlanNode) -> tuple[Page, dict]:
+        """Execute with per-operator observability (the reference's
+        OperatorStats rolled up by ExplainAnalyzeOperator).
+
+        Returns (page, stats) where stats[nid] = {"rows": int, "ms": float}:
+        the plan runs once through execute() (capacities learned, result
+        checked), then once more at those capacities with the device
+        synchronized after every node, so each node's time is its own and
+        its row count is its live rows."""
+        page = self.execute(plan)
+        _, caps, sort_joins = self._learned_caps[plan]
+        nodes = _node_ids(plan)
+        inputs = {
+            str(i): self.table_page(n.catalog, n.table, n.column_names, n.output_types,
+                                    scan_id=i)
+            for i, n in nodes.items() if isinstance(n, TableScan)
+        }
+        stats: dict[int, dict] = {}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        last = [time.perf_counter()]
+
+        def hook(nid, node, stage):
+            rows = int(stage.live.sum())  # synchronizes with the device
+            now = time.perf_counter()
+            stats[nid] = {"rows": rows, "ms": (now - last[0]) * 1e3}
+            last[0] = time.perf_counter()
+
+        _trace_plan(plan, inputs, dict(caps), sort_joins, self.device, node_hook=hook)
+        return page, stats
 
     def _initial_caps(self, nodes, inputs) -> dict[int, int]:
         # stats-fed first guesses (plan/stats.py: group-key NDV products);
@@ -339,14 +426,15 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
 
 def _trace_plan(
     plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
-    sort_joins: frozenset = frozenset(), device="cuda",
+    sort_joins: frozenset = frozenset(), device="cuda", node_hook=None,
 ):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
     to a device scalar holding the size that node truly needed (plus the
     EnforceSingleRow counts and join guards, see the module docstring).
     Joins whose ids are in `sort_joins` take the sort path; `device` holds
-    the rows of a Values node."""
+    the rows of a Values node; `node_hook(nid, node, stage)`, when given,
+    runs after each node (EXPLAIN ANALYZE's per-operator statistics)."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -417,6 +505,13 @@ def _trace_plan(
         return _Stage(cols, out_live)
 
     def emit(node: PlanNode) -> _Stage:
+        nid = counter[0]
+        stage = emit_node(node)
+        if node_hook is not None:
+            node_hook(nid, node, stage)
+        return stage
+
+    def emit_node(node: PlanNode) -> _Stage:
         nid = counter[0]
         counter[0] += 1
 

@@ -24,7 +24,7 @@ regexp family, concatenation) run once per distinct dictionary value on the
 host and the table is gathered by code on the device — the reference's
 design, and its DictionaryAwarePageProjection fast path made the only path.
 JSON, maps, rows, arrays and lambdas raise NotImplementedError naming
-ROADMAP A.8b; prepared-statement parameters name A.9.
+ROADMAP A.8b; the prepared-statement fast path's parameters name A.9b.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ def eval_expr(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) -> Colu
         return _like(e, cols, n, dev)
     if isinstance(e, Param):
         raise NotImplementedError(
-            "Param expressions (prepared statements) are not ported to "
-            "trino_tpu_torch yet (ROADMAP A.9)"
+            "Param expressions (the prepared-statement fast path) are not "
+            "ported to trino_tpu_torch yet (ROADMAP A.9b)"
         )
     raise NotImplementedError(f"eval: {e}")
 

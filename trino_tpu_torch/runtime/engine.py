@@ -3,22 +3,65 @@
 The single-process counterpart of the reference's coordinator pipeline
 (dispatcher/DispatchManager.createQuery -> SqlQueryExecution.start ->
 LogicalPlanner -> scheduler -> operators), collapsed to:
-parse -> plan (plan/planner.py) -> execute (exec/compiler.py).
+parse -> plan (plan/planner.py) -> execute (exec/compiler.py), plus the
+statement surface (DDL/DML/views/prepared statements/transactions/EXPLAIN/
+SHOW/SET SESSION — the reference's DataDefinitionTask family and writer
+plans) over writable connectors such as connectors/memory.py.
 
-This slice serves SELECT and SET SESSION; every other statement raises
-NotImplementedError naming the ROADMAP item that ports it.
+A write runs its source query on the device, exports the result page to
+host numpy (`Page.to_numpy_columns`), stages it through the connector's
+write handle (runtime/txn.py) and commits; the next scan of the table
+uploads the new generation.  Row-level DML lowers to table rewrites
+(runtime/dml.py).
+
+Not here yet: the prepared-statement fast path and the result cache
+(ROADMAP A.9b; EXECUTE takes the substitute-and-replan path), distributed
+EXPLAIN ANALYZE (A.10), the write journal and fault injection (A.11).
 """
 
 from __future__ import annotations
 
-from ..connectors.spi import CatalogManager, Connector
+import threading
+import time as _time
+import numpy as np
+
+from ..connectors.spi import CatalogManager, ColumnSchema, Connector
 from ..data.page import Page
 from ..exec.compiler import LocalExecutor
-from ..plan.nodes import PlanNode, format_plan
+from ..plan.nodes import PlanNode, TableScan, format_plan
 from ..plan.planner import Planner
 from .session import SessionProperties
+from .txn import run_write  # imported eagerly: registers the txn metrics
 
 __all__ = ["Engine"]
+
+
+def _rescale_column(arr, src_type, dst_type):
+    """Align a query-result column with the target table's column type.
+    Decimal lanes are scaled int64 (data/types.py DecimalType), so writing
+    them into a double/int/differently-scaled column must rescale — a plain
+    astype would persist the raw lanes (e.g. 1.5 stored as 15)."""
+    src_dec = getattr(src_type, "scale", None) if src_type.is_decimal else None
+    dst_dec = getattr(dst_type, "scale", None) if dst_type.is_decimal else None
+    if src_dec is None and dst_dec is None:
+        return arr
+    mask = np.ma.getmaskarray(arr) if isinstance(arr, np.ma.MaskedArray) else None
+    base = np.ma.getdata(arr) if mask is not None else np.asarray(arr)
+    if src_dec is not None and dst_dec is None:
+        out = (
+            base.astype(np.float64) / (10.0**src_dec)
+            if dst_type.is_floating
+            else np.round(base.astype(np.float64) / (10.0**src_dec)).astype(np.int64)
+        )
+    elif src_dec is None and dst_dec is not None:
+        out = np.round(base.astype(np.float64) * (10.0**dst_dec)).astype(np.int64)
+    elif src_dec != dst_dec:
+        out = np.round(base.astype(np.float64) * (10.0 ** (dst_dec - src_dec))).astype(
+            np.int64
+        )
+    else:
+        return arr
+    return np.ma.MaskedArray(out, mask=mask) if mask is not None else out
 
 
 class Engine:
@@ -32,15 +75,42 @@ class Engine:
         self.executor = LocalExecutor(self.catalogs, default_catalog, device=device)
         self.device = self.executor.device
         self.session = SessionProperties()
+        self._prepared: dict[str, str] = {}
+        self._view_sql: dict[tuple[str, str], str] = {}  # SHOW CREATE VIEW
+        self._tx_views = None  # (views, view_sql) snapshot inside a tx
+        self._tx_snapshots = None  # name -> connector snapshot, inside a tx
+        from .security import AllowAllAccessControl
+
+        # reference: security/AccessControlManager consulted before planning
+        self.access_control = AllowAllAccessControl()
+        self.user = "user"
+        # write-transaction plane (runtime/txn.py): per-thread write sequence
+        # of the transaction ids; no journal and no fault injector (A.11)
+        self._txn_local = threading.local()
+        self._last_txn_info = None  # EXPLAIN ANALYZE `-- txn:` footer
+        # host milliseconds of the last statement's write-source queries,
+        # split into running them (plan + execute on the device, synchronized)
+        # and exporting their pages to numpy
+        self.last_write_split = {"query_ms": 0.0, "export_ms": 0.0}
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs.register(name, connector)
 
     # ------------------------------------------------------------- queries
     def plan(self, sql_or_query) -> PlanNode:
+        from ..plan.nodes import walk
         from ..plan.optimizer import optimize
 
-        return optimize(self.planner.plan(sql_or_query), self.catalogs, self.session)
+        plan = optimize(self.planner.plan(sql_or_query), self.catalogs, self.session)
+        # table-level SELECT checks on the final plan: base tables of views/
+        # CTEs/subqueries are all visible as scans here (reference:
+        # checkCanSelectFromColumns per analyzed table reference)
+        for n in walk(plan):
+            if isinstance(n, TableScan):
+                self.access_control.check_can_select(
+                    self.user, n.catalog, n.table, n.column_names
+                )
+        return plan
 
     def explain(self, sql: str) -> str:
         return format_plan(self.plan(sql))
@@ -62,12 +132,32 @@ class Engine:
         ))
 
     def query(self, sql) -> list[tuple]:
-        """Run a SELECT, return rows as python tuples (None == NULL)."""
+        """Run a query, return rows as python tuples (None == NULL)."""
         return self.execute_page(sql).to_pylist()
+
+    def _query_columns(self, query) -> tuple[list, list, list]:
+        """(names, types, host column arrays) of a query result — the write
+        path's input."""
+        t0 = _time.perf_counter()
+        plan = self.plan(query)
+        self._apply_kernel_props()
+        page = self.executor.execute(plan)
+        if page.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(page.device)
+        t1 = _time.perf_counter()
+        cols = page.to_numpy_columns()
+        t2 = _time.perf_counter()
+        self.last_write_split["query_ms"] += (t1 - t0) * 1e3
+        self.last_write_split["export_ms"] += (t2 - t1) * 1e3
+        return list(plan.output_names), list(plan.output_types), cols
 
     # ---------------------------------------------------- statement surface
     def execute(self, sql: str) -> list[tuple]:
-        """Statement surface: queries and SET SESSION."""
+        """Full statement surface: queries, DDL/DML, views, PREPARE /
+        EXECUTE / DEALLOCATE, transactions, EXPLAIN [ANALYZE], SHOW TABLES,
+        DESCRIBE, SET SESSION."""
         from ..sql import statements as S
 
         return self.execute_stmt(S.parse_statement(sql))
@@ -75,12 +165,451 @@ class Engine:
     def execute_stmt(self, stmt) -> list[tuple]:
         from ..sql import statements as S
 
+        # access control at statement dispatch (reference: AccessControl
+        # checkCanInsertIntoTable / checkCanDropTable / ... before execution;
+        # SELECT is checked per-scan in plan())
+        if isinstance(stmt, (S.CreateTable, S.CreateTableAs)):
+            self._check_write(stmt.name, "create")
+        elif isinstance(stmt, (S.Insert, S.InsertValues)):
+            self._check_write(stmt.table, "insert")
+        elif isinstance(stmt, S.DropTable):
+            self._check_write(stmt.name, "drop")
+        elif isinstance(stmt, S.Delete):
+            self._check_write(stmt.table, "delete")
+        elif isinstance(stmt, S.Update):
+            self._check_write(stmt.table, "update")
+        elif isinstance(stmt, S.Merge):
+            self._check_write(stmt.target, "merge")
+        elif isinstance(stmt, S.CreateView):
+            self._check_write(stmt.name, "create_view")
+        elif isinstance(stmt, S.DropView):
+            self._check_write(stmt.name, "drop_view")
+        elif isinstance(stmt, S.SetSession):
+            self.access_control.check_can_set_session(self.user, stmt.name)
+
+        self.last_write_split = {"query_ms": 0.0, "export_ms": 0.0}
         if isinstance(stmt, S.QueryStmt):
             return self.query(stmt.query)
+
+        if isinstance(stmt, S.Explain):
+            return self._execute_explain(stmt)
+
+        if isinstance(stmt, S.CreateTable):
+            from ..data.types import parse_type
+
+            conn, name = self._target_conn(stmt.name)
+            if stmt.if_not_exists and name in conn.list_tables():
+                return [(0,)]
+            conn.create_table(
+                name, [ColumnSchema(n, parse_type(t)) for n, t in stmt.columns]
+            )
+            return [(0,)]
+
+        if isinstance(stmt, S.CreateTableAs):
+            conn, name = self._target_conn(stmt.name)
+            if stmt.if_not_exists and name in conn.list_tables():
+                return [(0,)]
+            _, catalog, _ = self._target_ref(stmt.name)
+
+            def _ctas(txn):
+                # recomputed per attempt: a conflict retry must stage
+                # against the fresh snapshot, not stale arrays
+                names, types, cols = self._query_columns(stmt.query)
+                txn.stage_create(
+                    [ColumnSchema(n, t) for n, t in zip(names, types)]
+                )
+                txn.stage_insert(dict(zip(names, cols)))
+                return 0
+
+            n = run_write(self, catalog, name, "create", _ctas)
+            return [(n,)]
+
+        if isinstance(stmt, S.Insert):
+            conn, table = self._target_conn(stmt.table)
+            _, catalog, _ = self._target_ref(stmt.table)
+
+            def _insert(txn):
+                _, types, cols = self._query_columns(stmt.query)
+                schema = conn.table_schema(table)
+                names = (
+                    list(stmt.columns)
+                    if stmt.columns
+                    else [c.name for c in schema.columns]
+                )
+                if len(names) != len(cols):
+                    raise ValueError(
+                        f"INSERT column count mismatch: {len(names)} vs {len(cols)}"
+                    )
+                cols2 = [
+                    _rescale_column(arr, t, schema.type_of(n))
+                    for arr, t, n in zip(cols, types, names)
+                ]
+                return self._insert_resolved(conn, table, names, cols2, txn)
+
+            n = run_write(self, catalog, table, "insert", _insert)
+            return [(n,)]
+
+        if isinstance(stmt, S.InsertValues):
+            _, catalog, table = self._target_ref(stmt.table)
+            table = table.split(".")[-1]
+            n = run_write(
+                self, catalog, table, "insert",
+                lambda txn: self._insert_values(stmt, txn),
+            )
+            return [(n,)]
+
+        if isinstance(stmt, S.DropTable):
+            conn, name = self._target_conn(stmt.name)
+            if stmt.if_exists and name not in conn.list_tables():
+                return [(0,)]
+            conn.drop_table(name)
+            self.cache_invalidate(stmt.name)
+            return [(0,)]
+
+        if isinstance(stmt, S.CreateView):
+            conn, catalog, name = self._target_ref(stmt.name)
+            name = name.split(".")[-1]  # match the planner's (catalog, table)
+            key = (catalog, name)
+            if name in conn.list_tables():
+                # Trino: TABLE_ALREADY_EXISTS — a view must not shadow a table
+                raise ValueError(f"table already exists: {stmt.name}")
+            if key in self.planner.views and not stmt.or_replace:
+                raise ValueError(f"view already exists: {stmt.name}")
+            prev = self.planner.views.get(key)
+            self.planner.views[key] = stmt.query
+            try:
+                self.plan(stmt.query)  # validate now: names, types, cycles
+            except Exception:
+                if prev is None:
+                    del self.planner.views[key]
+                else:
+                    self.planner.views[key] = prev
+                raise
+            self._view_sql[key] = stmt.sql
+            return [(0,)]
+
+        if isinstance(stmt, S.DropView):
+            _, catalog, name = self._target_ref(stmt.name)
+            key = (catalog, name.split(".")[-1])
+            if key not in self.planner.views:
+                if stmt.if_exists:
+                    return [(0,)]
+                raise KeyError(f"view not found: {stmt.name}")
+            del self.planner.views[key]
+            self._view_sql.pop(key, None)
+            return [(0,)]
+
+        if isinstance(stmt, S.ShowCreateView):
+            _, catalog, name = self._target_ref(stmt.name)
+            name = name.split(".")[-1]
+            sql_text = self._view_sql.get((catalog, name))
+            if sql_text is None:
+                raise KeyError(f"view not found: {stmt.name}")
+            return [(f"CREATE VIEW {name} AS {sql_text}",)]
+
+        if isinstance(stmt, S.ShowTables):
+            conn = self.catalogs.get(self.default_catalog)
+            views = sorted(
+                n for (c, n) in self.planner.views if c == self.default_catalog
+            )
+            return [(t,) for t in conn.list_tables()] + [(v,) for v in views]
+
+        if isinstance(stmt, S.DescribeTable):
+            _, catalog, name = self._target_ref(stmt.name)
+            vq = self.planner.views.get((catalog, name.split(".")[-1]))
+            if vq is not None:
+                plan = self.plan(vq)
+                return [
+                    (n, t.name)
+                    for n, t in zip(plan.output_names, plan.output_types)
+                ]
+            conn, name = self._target_conn(stmt.name)
+            schema = conn.table_schema(name)
+            return [(c.name, c.type.name) for c in schema.columns]
+
         if isinstance(stmt, S.SetSession):
             self.session.set(stmt.name, stmt.value)
             return [(1,)]
-        raise NotImplementedError(
-            f"statement {type(stmt).__name__} is not ported to trino_tpu_torch "
-            "yet (ROADMAP A.9: statements and the storage plane)"
-        )
+
+        if isinstance(stmt, S.Delete):
+            from .dml import execute_delete
+
+            return [(execute_delete(self, stmt),)]
+
+        if isinstance(stmt, S.Update):
+            from .dml import execute_update
+
+            return [(execute_update(self, stmt),)]
+
+        if isinstance(stmt, S.Merge):
+            from .dml import execute_merge
+
+            return [(execute_merge(self, stmt),)]
+
+        if isinstance(stmt, S.Prepare):
+            self._prepared[stmt.name] = stmt.sql
+            return [(1,)]
+
+        if isinstance(stmt, S.ExecuteStmt):
+            # typed AST substitution + full re-plan (the reference's legacy
+            # path; its parameterized plan cache ports with ROADMAP A.9b)
+            sql_text = self._resolve_prepared(stmt.name)
+            bound = S.parse_statement(sql_text, params=stmt.parameters)
+            return self.execute_stmt(bound)
+
+        if isinstance(stmt, S.Deallocate):
+            self._prepared.pop(stmt.name, None)
+            return [(1,)]
+
+        if isinstance(stmt, S.StartTransaction):
+            # per-session transaction over writable catalogs: connectors that
+            # support snapshot/restore participate (reference:
+            # transaction/TransactionManager + connector tx handles; here the
+            # rewrite-and-swap write path makes copy-on-write snapshots cheap)
+            if self._tx_snapshots is not None:
+                raise RuntimeError("transaction already in progress")
+            self._tx_snapshots = {
+                name: self.catalogs.get(name).snapshot()
+                for name in self.catalogs.names()
+                if hasattr(self.catalogs.get(name), "snapshot")
+            }
+            # view DDL participates: restore the registry on ROLLBACK too
+            self._tx_views = (dict(self.planner.views), dict(self._view_sql))
+            return [(1,)]
+
+        if isinstance(stmt, S.Commit):
+            if self._tx_snapshots is None:
+                raise RuntimeError("no transaction in progress")
+            self._tx_snapshots = None
+            self._tx_views = None
+            return [(1,)]
+
+        if isinstance(stmt, S.Rollback):
+            if self._tx_snapshots is None:
+                raise RuntimeError("no transaction in progress")
+            for name, snap in self._tx_snapshots.items():
+                self.catalogs.get(name).restore(snap)
+            self._tx_snapshots = None
+            if self._tx_views is not None:
+                self.planner.views, self._view_sql = self._tx_views
+                self._tx_views = None
+            return [(1,)]
+
+        raise NotImplementedError(f"statement {type(stmt).__name__}")
+
+    # ------------------------------------------------------------- explain
+    def _explain_execute(self, stmt) -> list[tuple]:
+        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the bound template's
+        plan, through the substitute-and-replan path."""
+        from ..sql import statements as S
+
+        ex_stmt = stmt.execute
+        sql_text = self._resolve_prepared(ex_stmt.name)
+        bound = S.parse_statement(sql_text, params=ex_stmt.parameters)
+        if not isinstance(bound, S.QueryStmt):
+            raise ValueError("EXPLAIN EXECUTE requires a query template")
+        inner = S.Explain(bound.query, stmt.analyze, stmt.distributed)
+        text = [r[0] for r in self._execute_explain(inner)]
+        text.append("-- fastpath: off (legacy substitute-and-replan path)")
+        return [(line,) for line in text]
+
+    def _execute_explain(self, stmt) -> list[tuple]:
+        """EXPLAIN [ANALYZE] in the session's explain_format (text | json).
+        ANALYZE runs the plan once with per-operator row counts and times
+        (LocalExecutor.explain_analyze)."""
+        import json as _json
+
+        from ..plan.nodes import plan_to_obj
+
+        if stmt.execute is not None:
+            return self._explain_execute(stmt)
+        if stmt.statement is not None:
+            return self._explain_write(stmt)
+        fmt = str(self.session.get("explain_format") or "text").lower()
+        plan = self.plan(stmt.query)
+        if not stmt.analyze:
+            if fmt == "json":
+                return [(_json.dumps(plan_to_obj(plan), indent=2),)]
+            return [(line,) for line in format_plan(plan).splitlines()]
+
+        t0 = _time.perf_counter()
+        self._apply_kernel_props()
+        page, stats = self.executor.explain_analyze(plan)
+        n_out = len(page.to_pylist())
+        wall = _time.perf_counter() - t0
+        if fmt == "json":
+            obj = {
+                "plan": plan_to_obj(plan, stats=stats),
+                "output_rows": n_out,
+                "wall_ms": round(wall * 1e3, 1),
+            }
+            return [(_json.dumps(obj, indent=2),)]
+        ann = {
+            nid: (
+                f"   [rows: {s.get('rows', '?')}"
+                + (f", {s['ms']:.1f} ms" if "ms" in s else "")
+                + "]"
+            )
+            for nid, s in stats.items()
+        }
+        text = format_plan(plan, annotations=ann).splitlines()
+        timed = [(nid, s["ms"]) for nid, s in stats.items() if "ms" in s]
+        if timed:
+            slow_nid, slow_ms = max(timed, key=lambda kv: kv[1])
+            from ..exec.compiler import _node_ids
+
+            slow = type(_node_ids(plan)[slow_nid]).__name__
+            text.append(
+                f"-- slowest operator: {slow} (node {slow_nid}, {slow_ms:.1f} ms eager)"
+            )
+        text.append(f"-- output rows: {n_out}, wall: {wall * 1000:.1f} ms")
+        from ..ops.kernels import events_for
+
+        for op, impl, detail in events_for(plan):
+            text.append(
+                f"-- kernel: {impl} {op}" + (f" ({detail})" if detail else "")
+            )
+        return [(line,) for line in text]
+
+    def _explain_write(self, stmt) -> list[tuple]:
+        """EXPLAIN [ANALYZE] over a write statement.  Plain EXPLAIN renders
+        the source query's plan (if any) plus the write target without
+        executing; ANALYZE executes the statement through the transactional
+        path and appends the `-- txn:` commit-protocol footer."""
+        from ..sql import statements as S
+
+        inner = stmt.statement
+        text: list[str] = []
+        target = getattr(inner, "table", None) or getattr(inner, "name", None) \
+            or getattr(inner, "target", None)
+        op = type(inner).__name__
+        text.append(f"Write[{op} -> {target}]")
+        src = getattr(inner, "query", None)
+        if src is not None and not isinstance(inner, S.Merge):
+            text.extend(
+                "  " + ln for ln in format_plan(self.plan(src)).splitlines()
+            )
+        if not stmt.analyze:
+            return [(line,) for line in text]
+        t0 = _time.perf_counter()
+        rows = self.execute_stmt(inner)
+        wall = _time.perf_counter() - t0
+        n = rows[0][0] if rows and rows[0] else 0
+        text.append(f"-- output rows: {n}, wall: {wall * 1e3:.1f} ms")
+        info = self._last_txn_info
+        if info is not None:
+            text.append(
+                f"-- txn: id={info['txn_id']} table={info['table']}"
+                f" op={info['operation']} expected={info['expected']}"
+                f" staged_bytes={info['staged_bytes']}"
+                f" retries={info.get('retries', 0)}"
+                f" outcome={info['outcome']}"
+                f" commit_ms={info['commit_ms']:.1f}"
+            )
+        return [(line,) for line in text]
+
+    # ------------------------------------------------------ targets & caches
+    def cache_invalidate(self, name: str) -> None:
+        """Every write statement (and runtime/dml.py) routes through here
+        once its commit lands: the table's device columns are stale, so the
+        executor lets go of them now rather than at the next scan."""
+        try:
+            _, catalog, table = self._target_ref(name)
+        except KeyError:
+            return  # dropping an unknown catalog's table: nothing cached
+        self.executor.drop_table_cache(catalog, table.split(".")[-1])
+
+    def _resolve_prepared(self, name: str) -> str:
+        if name not in self._prepared:
+            raise KeyError(f"prepared statement not found: {name}")
+        return self._prepared[name]
+
+    def _target_conn(self, name: str):
+        """Resolve a possibly `catalog.table`-qualified DDL/DML target
+        (Trino 2-part semantics: an unknown first part falls back to a plain
+        table name in the default catalog)."""
+        conn, _catalog, table = self._target_ref(name)
+        return conn, table
+
+    def _check_write(self, name: str, operation: str) -> None:
+        _, catalog, table = self._target_ref(name)
+        self.access_control.check_can_write(self.user, catalog, table, operation)
+
+    def _target_ref(self, name: str):
+        """(connector, catalog name, table name) of a DDL/DML target."""
+        if "." in name:
+            parts = name.split(".")
+            try:
+                return self.catalogs.get(parts[0]), parts[0], parts[-1]
+            except KeyError:
+                pass
+        return self.catalogs.get(self.default_catalog), self.default_catalog, name
+
+    # ------------------------------------------------------------ write path
+    def _insert_resolved(self, conn, table: str, names: list, cols: list, stage) -> int:
+        """Resolve query columns against the table schema and stage them
+        into the WriteTransaction `stage`."""
+        schema = conn.table_schema(table)
+        if len(names) != len(cols):
+            raise ValueError(f"INSERT column count mismatch: {len(names)} vs {len(cols)}")
+        data = {}
+        for cname, arr in zip(names, cols):
+            t = schema.type_of(cname)
+            if t.is_string or isinstance(arr, np.ma.MaskedArray):
+                # astype on a MaskedArray preserves the mask; np.asarray
+                # would silently strip it and persist garbage for NULL lanes
+                data[cname] = arr if t.is_string else arr.astype(t.np_dtype)
+            else:
+                data[cname] = np.asarray(arr).astype(t.np_dtype)
+        n = len(cols[0]) if cols else 0
+        for c in schema.columns:  # unreferenced columns default to zero values
+            if c.name not in data:
+                data[c.name] = np.zeros(
+                    (n,), dtype=object if c.type.is_string else c.type.np_dtype
+                )
+        stage.stage_insert(data)
+        return n
+
+    def _insert_values(self, stmt, stage) -> int:
+        from ..plan.ir import Const
+        from ..plan.planner import Scope, _cast_ir, _Translator
+
+        conn, table = self._target_conn(stmt.table)
+        schema = conn.table_schema(table)
+        names = list(stmt.columns) if stmt.columns else [c.name for c in schema.columns]
+        t = _Translator(Scope([]))
+        rows = []
+        for row in stmt.rows:
+            vals = []
+            for ci, e in enumerate(row):
+                ir = t.translate(e)
+                if not isinstance(ir, Const):
+                    raise ValueError(f"INSERT VALUES must be literals: {e}")
+                # coerce to the column type (e.g. 1.5 -> scaled decimal lanes)
+                ir = _cast_ir(ir, schema.type_of(names[ci]))
+                vals.append(ir.value)
+            rows.append(vals)
+        n = len(rows)
+        data = {}
+        for ci, cname in enumerate(names):
+            typ = schema.type_of(cname)
+            col = [r[ci] for r in rows]
+            nulls = np.array([v is None for v in col], dtype=bool)
+            if nulls.any():
+                fill = "" if typ.is_string else 0
+                arr = np.asarray(
+                    [fill if v is None else v for v in col],
+                    dtype=object if typ.is_string else typ.np_dtype,
+                )
+                data[cname] = np.ma.MaskedArray(arr, mask=nulls)
+            else:
+                data[cname] = np.asarray(
+                    col, dtype=object if typ.is_string else typ.np_dtype
+                )
+        for c in schema.columns:
+            if c.name not in data:
+                data[c.name] = np.zeros(
+                    (n,), dtype=object if c.type.is_string else c.type.np_dtype
+                )
+        stage.stage_insert(data)
+        return n
