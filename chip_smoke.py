@@ -37,7 +37,14 @@ committed transaction, PREPARE / EXECUTE, a view, an empty table, EXPLAIN
 [ANALYZE] of a write), holds every step against numpy, checks that device
 memory keeps one generation of each written table, and runs the sequence
 again at SF 0.01 on the card and on `Engine(device="cpu")`, every result and
-final table compared.  Each phase prints JSON lines; the last line of standard output is `{"ok":
+final table compared.  The `nested` phase runs arrays, JSON, lambdas, UNNEST
+and MATCH_RECOGNIZE on the TPC-H engine (the words of `part.p_name` and
+`orders.o_comment` through CROSS JOIN UNNEST(split(...)), lambdas per brand,
+JSON paths over 1,000,000 payloads made from a seed in a `nested` memory
+catalog, rising price runs per customer, a TopN over unnested words), each
+against a python / numpy reference, then every statement of the port's
+nested-value test files at SF 0.01 on the card and on `Engine(device="cpu")`.
+Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
 exits 2.
@@ -2232,6 +2239,310 @@ def statements_phase(engine, scale):
     return counts, time.perf_counter() - t_phase
 
 
+# ------------------------------------------------------------------ nested
+# Arrays, JSON, lambdas, UNNEST and MATCH_RECOGNIZE over the TPC-H tables of
+# the earlier phases and a `nested.events` table of JSON payloads made here.
+
+NESTED = {
+    # N1: ~5 words per part name; hash GROUP BY over the UNNEST rows
+    "words_part": (
+        "select w, count(*) as c from part cross join unnest(split(p_name, ' ')) as t(w) "
+        "group by w order by c desc, w limit 10"),
+    # N2: ~10 M elements of mostly distinct arrays, with their ordinality
+    "words_orders": (
+        "select w, count(*) as c, sum(o) as so from orders "
+        "cross join unnest(split(o_comment, ' ')) with ordinality as t(w, o) "
+        "group by w order by c desc, w limit 10"),
+    # N3: a lambda, a reduce, contains, array_sort / array_join, element_at
+    "lambdas": (
+        "select p_brand, "
+        "sum(cardinality(filter(split(p_name, ' '), w -> length(w) > 5))) as long_words, "
+        "sum(reduce(transform(split(p_name, ' '), w -> length(w)), 0, (s, x) -> s + x, "
+        "s -> s)) as letters, "
+        "sum(case when contains(split(p_name, ' '), 'green') then 1 else 0 end) as green, "
+        "max(array_join(array_sort(split(p_name, ' ')), '-')) as sorted_name, "
+        "max(element_at(split(p_name, ' '), -1)) as last_word "
+        "from part group by p_brand order by p_brand"),
+    # N4: JSON paths over mostly distinct payloads; malformed ones are NULL
+    "json_events": (
+        "select tier, count(*) as n, sum(tags) as tags, sum(members) as members from ("
+        "select json_extract_scalar(p, '$.user.tier') as tier, "
+        "json_array_length(json_extract(p, '$.tags')) as tags, "
+        "json_size(p, '$') as members from nested.events) "
+        "group by tier order by tier"),
+    # N5: runs of strictly rising order prices per customer
+    "rising_runs": (
+        "select count(*) as matches, sum(f) as first_keys, sum(l) as last_keys, "
+        "max(mno) as most, sum(p1 - p0) as rise from ("
+        "select * from orders match_recognize ("
+        "partition by o_custkey order by o_orderdate, o_orderkey "
+        "measures match_number() as mno, first(strt.o_orderkey) as f, "
+        "last(up.o_orderkey) as l, first(strt.o_totalprice) as p0, "
+        "last(up.o_totalprice) as p1 "
+        "one row per match after match skip past last row "
+        "pattern (strt up+) define up as up.o_totalprice > prev(up.o_totalprice)))"),
+    # N6: ORDER BY ... LIMIT over the ~1 M UNNEST rows of N1 (radix TopN)
+    "unnest_topn": (
+        "select p_partkey, o, w from part "
+        "cross join unnest(split(p_name, ' ')) with ordinality as t(w, o) "
+        "order by p_partkey desc, o desc limit 10"),
+}
+NESTED_KERNELS = ("segment_reduce", "hash_build", "radix_select")  # the path's kernels
+EVENTS_ROWS = 1_000_000  # at scale 1
+EVENT_TIERS = ("bronze", "silver", "gold", "platinum")
+EVENT_TAGS = ("new", "sale", "mobile", "web", "promo", "return", "gift", "bulk", "eu", "us",
+              "apac", "trial", "vip", "app", "email", "ads", "search", "social", "b2b", "b2c")
+NESTED_TEST_FILES = ("test_torch_arrays", "test_torch_lambdas", "test_torch_matchrec",
+                     "test_torch_nested")
+
+
+def events_table(n: int, seed: int = 11) -> dict:
+    """`n` JSON payloads from a seed: a user id and tier, 0-4 tags and an
+    amount, mostly distinct; one in 200 cut in half (malformed)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 10**9, n)
+    tier = rng.choice(len(EVENT_TIERS), n, p=[0.5, 0.3, 0.15, 0.05])
+    ntags = rng.integers(0, 5, n)
+    tags = rng.integers(0, len(EVENT_TAGS), (n, 4))
+    cents = rng.integers(0, 10**7, n)
+    bad = rng.random(n) < 0.005
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        tag_list = ",".join(f'"{EVENT_TAGS[t]}"' for t in tags[i, :ntags[i]])
+        s = (f'{{"user":{{"id":{ids[i]},"tier":"{EVENT_TIERS[tier[i]]}"}},'
+             f'"tags":[{tag_list}],"amount":{cents[i] // 100}.{cents[i] % 100:02d}}}')
+        out[i] = s[: len(s) // 2] if bad[i] else s
+    return {"k": np.arange(n, dtype=np.int64), "p": out}
+
+
+def words_reference(texts, limit: int = 10, ordinality: bool = False) -> list:
+    counts, ords = {}, {}
+    for s in texts:
+        for i, w in enumerate(s.split(" "), 1):
+            counts[w] = counts.get(w, 0) + 1
+            ords[w] = ords.get(w, 0) + i
+    top = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:limit]
+    return [(w, c, ords[w]) if ordinality else (w, c) for w, c in top]
+
+
+def lambdas_reference(part: dict) -> list:
+    groups: dict = {}
+    for name, brand in zip(part["p_name"], part["p_brand"]):
+        words = name.split(" ")
+        g = groups.setdefault(brand, [0, 0, 0, "", ""])
+        g[0] += sum(len(w) > 5 for w in words)
+        g[1] += sum(len(w) for w in words)
+        g[2] += "green" in words
+        g[3] = max(g[3], "-".join(sorted(words)))
+        g[4] = max(g[4], words[-1])
+    return [(b, *groups[b]) for b in sorted(groups)]
+
+
+def json_reference(events: dict) -> list:
+    import json
+
+    groups: dict = {}
+    for p in events["p"]:
+        try:
+            d = json.loads(p)
+        except ValueError:
+            d = None
+        tier = None if d is None else d["user"]["tier"]
+        g = groups.setdefault(tier, [0, None, None])
+        g[0] += 1
+        if d is not None:
+            g[1] = (g[1] or 0) + len(d["tags"])
+            g[2] = (g[2] or 0) + len(d)
+    order = sorted(t for t in groups if t is not None) + ([None] if None in groups else [])
+    return [(t, *groups[t]) for t in order]
+
+
+def rising_reference(orders: dict) -> list:
+    """Maximal runs of strictly rising o_totalprice per customer, in
+    (o_orderdate, o_orderkey) order: each run of two rows or more is one
+    match of (strt up+) under AFTER MATCH SKIP PAST LAST ROW."""
+    cust, key, price = orders["o_custkey"], orders["o_orderkey"], orders["o_totalprice"]
+    order = np.lexsort((key, orders["o_orderdate"], cust))
+    cust, key, price = cust[order], key[order], price[order]
+    up = (price[1:] > price[:-1]) & (cust[1:] == cust[:-1])
+    # runs of True in `up`: run [a, b) of up covers rows a .. b
+    edges = np.diff(np.concatenate([[0], up.astype(np.int8), [0]]))
+    starts, ends = np.flatnonzero(edges == 1), np.flatnonzero(edges == -1)
+    # the match number: 1 + earlier runs of the same customer
+    first_of_cust = np.searchsorted(cust, cust[starts], side="left")
+    runs_before = np.searchsorted(starts, first_of_cust, side="left")
+    mno = np.arange(len(starts)) - runs_before + 1
+    rise = int(price[ends].sum()) - int(price[starts].sum())
+    return [(len(starts), int(key[starts].sum()), int(key[ends].sum()),
+             int(mno.max()) if len(mno) else None, rise / 100.0)]
+
+
+def unnest_topn_reference(part: dict) -> list:
+    top = np.argsort(-part["p_partkey"], kind="stable")[:3]
+    rows = []
+    for i in top:
+        words = part["p_name"][i].split(" ")
+        rows.extend((int(part["p_partkey"][i]), o, w)
+                    for o, w in reversed(list(enumerate(words, 1))))
+    return rows[:10]
+
+
+def nested_reference(part: dict, orders: dict, events: dict) -> dict:
+    return {
+        "words_part": words_reference(part["p_name"]),
+        "words_orders": words_reference(orders["o_comment"], ordinality=True),
+        "lambdas": lambdas_reference(part),
+        "json_events": json_reference(events),
+        "rising_runs": rising_reference(orders),
+        "unnest_topn": unnest_topn_reference(part),
+    }
+
+
+def nested_timing(engine, sql) -> dict:
+    """3 warm runs of a statement on the card, layer by layer (plan,
+    execute, fetch), inside one card-only profiler trace: `warm_ms` is the
+    median run, the device's busy time is the trace's per run.  (One set of
+    runs, not three as in statement_timing: this path's host passes take
+    seconds per run, and a card-only trace adds microseconds per launch.)"""
+    laps = []
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = engine.plan(sql)
+        t1 = time.perf_counter()
+        page = engine.executor.execute(plan)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        page.to_pylist()
+        laps.append((t0, t1, t2, time.perf_counter()))
+
+    busy = traced_busy(run, 3)
+    while len(laps) < 3:  # the profiler failed before the runs: run them plain
+        run()
+    laps = laps[-3:]
+    med = lambda i, j: statistics.median((lap[j] - lap[i]) * 1e3 for lap in laps)
+    warm_ms = med(0, 3)
+    idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
+    return {"warm_ms": warm_ms, "warm_runs_ms": [(l[3] - l[0]) * 1e3 for l in laps],
+            "device_idle_share": idle, **busy,
+            "plan_ms": med(0, 1), "execute_ms": med(1, 2), "fetch_ms": med(2, 3)}
+
+
+def nested_test_module(name: str):
+    """One of the port's nested-value test files, loaded from tests/ for
+    its statements (CASES) and its engine builder (port_engine)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"nested_cases_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    threads = torch.get_num_threads()
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)  # the test files pin one thread
+    return mod
+
+
+def nested_cross_check() -> dict:
+    """Every statement of the port's nested-value test files (arrays, maps,
+    rows, JSON, lambdas, UNNEST, MATCH_RECOGNIZE, sequence(), zip_with) at
+    SF 0.01 on a card engine and on Engine(device="cpu"), rows compared,
+    and against the test's expected rows where it states them."""
+    compared = {}
+    for name in NESTED_TEST_FILES:
+        mod = nested_test_module(name)
+        card, host = mod.port_engine("cuda"), mod.port_engine("cpu")
+        for case, (sql, want) in mod.CASES.items():
+            got, exp = card.execute(sql), host.execute(sql)
+            rows_match(got, exp, f"nested SF 0.01 {name}/{case}: cuda vs cpu engine")
+            if want is not None:
+                rows_match(got, want, f"nested SF 0.01 {name}/{case}: cuda vs the test's rows")
+        compared[name] = len(mod.CASES)
+        del card, host
+    return compared
+
+
+def nested_phase(engine, scale):
+    """The nested-value family on the card at TPC-H `scale`: NESTED through
+    `Engine.query` on the TPC-H engine (plus a `nested` memory catalog
+    holding the JSON events), each statement against its python / numpy
+    reference; then the nested-value test files' statements at SF 0.01, card
+    vs Engine(device="cpu").  Returns (the path's launch counts, phase
+    seconds)."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.spi import ColumnSchema
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.data.types import BIGINT, VARCHAR
+    from trino_tpu_torch.exec.compiler import _node_ids
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.plan.nodes import Unnest
+
+    t_phase = time.perf_counter()
+    part, orders = tpch_data("part", scale), tpch_data("orders", scale)
+    t0 = time.perf_counter()
+    events = events_table(max(1000, int(EVENTS_ROWS * scale)))
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = nested_reference(part, orders, events)
+    reference_s = time.perf_counter() - t0
+    conn = MemoryConnector()
+    conn.create_table("events", [ColumnSchema("k", BIGINT), ColumnSchema("p", VARCHAR)])
+    conn.insert("events", events)
+    engine.register_catalog("nested", conn)
+    emit({"phase": "nested", "step": "data", "scale": scale, "events": len(events["k"]),
+          "events_make_s": round(make_s, 3), "reference_s": round(reference_s, 3),
+          "part": len(part["p_partkey"]), "orders": len(orders["o_orderkey"])})
+    del events
+    engine.execute("set session data_plane_kernels = true")
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for name, sql in NESTED.items():
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = engine.query(sql)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        retries = list(engine.executor.last_retries)
+        required = dict(engine.executor.last_required)
+        after = kernel_counts()
+        launches = {k: after[k] - before[k] for k in KERNEL_NAMES}
+        for k in KERNEL_NAMES:
+            counts[k] += launches[k]
+        rows_match(rows, want[name], f"nested {name} on cuda vs python reference")
+        plan = engine.plan(sql)
+        events_run = kernels.events_for(plan)
+        unnest_rows = [required.get(nid) for nid, node in _node_ids(plan).items()
+                       if isinstance(node, Unnest)]
+        emit({"phase": "nested", "query": name, "scale": scale, "rows": len(rows),
+              "correct": True, "cold_ms": cold_ms, **nested_timing(engine, sql),
+              "first_run_retries": retries,
+              "host_values": sum(int(d) for op, _, d in events_run if op == "host_pass"),
+              "host_passes": sum(1 for op, _, _ in events_run if op == "host_pass"),
+              "unnest_rows": unnest_rows, "launches": launches,
+              "dispatch": [[op, impl] for op, impl, _ in events_run if op != "host_pass"]})
+    for k in NESTED_KERNELS:
+        if counts[k] < 1:
+            fail(f"nested path never launched {k}: {counts}")
+    # the kernels' calls of N1 and N6 against their plain versions on the
+    # engine's own tensors (after the counts were read)
+    calls = check_main_path_calls(
+        engine, [("nested", "true", n, NESTED[n], 0, ()) for n in ("words_part", "unnest_topn")],
+        require_all=False)
+    missing = set(NESTED_KERNELS) - {c["kernel"] for c in calls}
+    if missing:
+        fail(f"nested kernel_calls reached no call of {sorted(missing)}")
+    emit({"phase": "nested", "step": "kernel_calls", "calls": calls})
+    engine.execute("drop table nested.events")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    compared = nested_cross_check()
+    emit({"phase": "nested", "step": "cross_scale", "scale": 0.01, "correct": True,
+          "statements_compared": compared, "seconds": round(time.perf_counter() - t0, 3)})
+    torch.cuda.empty_cache()
+    return counts, time.perf_counter() - t_phase
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -2349,9 +2660,11 @@ def main(argv=None) -> int:
     tpcds_counts, tpcds_path_s = tpcds_phase(engine, args.scale)
     tpcds_s = time.perf_counter() - t_tpcds
     statements_counts, statements_s = statements_phase(engine, args.scale)
+    nested_counts, nested_s = nested_phase(engine, args.scale)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
-                   "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]]}
+                   "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
+                   "nested": nested_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -2360,7 +2673,7 @@ def main(argv=None) -> int:
     emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
     emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
-          "statements_seconds": round(statements_s, 1)})
+          "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

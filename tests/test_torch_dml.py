@@ -315,3 +315,37 @@ def test_merge_insert_only_multimatch_source(engine):
     )
     assert n == [(1,)]
     assert engine.execute("select k, v from t2 order by k") == [(1, 10.0), (2, 20.0)]
+
+
+# ------------------------------------------------ INSERT with a column list
+
+
+def test_insert_column_list_leaves_the_other_columns_null(engine):
+    """Columns left out of an INSERT's column list are NULL, of every type
+    (VARCHAR included), through INSERT ... VALUES and INSERT ... SELECT, and
+    the table stays readable after a later full-row insert — against the
+    same statements on sqlite.  (The reference fills them with zeros, and
+    with the integer 0 for VARCHAR: ROADMAP C.)"""
+    db = sqlite3.connect(":memory:")
+
+    def both(sql):
+        engine.execute(sql)
+        db.execute(sql)
+
+    def check(sql):
+        got = engine.execute(sql)
+        want = [tuple(r) for r in db.execute(sql).fetchall()]
+        assert got == want, f"{sql}\n got={got}\nwant={want}"
+        return got
+
+    both("create table w (a bigint, c double, d date, s varchar)")
+    both("insert into w (a) values (1)")
+    assert check("select a, c, d, s from w") == [(1, None, None, None)]
+    check("select c is null, d is null, s is null from w")
+    both("insert into w (s, a) select 'q', a + 10 from w")
+    both("insert into w (c, a) select 2.5, a + 20 from w where a = 1")
+    both("insert into w values (2, 1.5, '2020-01-01', 'x')")
+    check("select a, c, d, s from w order by a")
+    check("select count(*), count(c), count(d), count(s) from w")
+    check("select s, count(*) from w group by s order by s nulls last")
+    db.close()

@@ -135,10 +135,13 @@ def test_set_session_and_unported_plan_nodes(engines):
     assert port.execute("set session data_plane_kernels = false") == [(1,)]
     assert port.session.get("data_plane_kernels") is False
     port.execute("set session data_plane_kernels = true")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        port.query("select n_name, x from nation cross join unnest(array[1, 2]) as t(x)")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        port.query("select n_name, json_extract_scalar(n_comment, '$.a') from nation")
+    # Unnest and JSON raised naming ROADMAP A.8b until the nested-value
+    # family was ported; they now run and equal the reference
+    ref, _ = engines
+    for sql in ("select n_name, x from nation cross join unnest(array[1, 2]) as t(x)",
+                "select n_name, json_extract_scalar(n_comment, '$.a') from nation"):
+        assert sorted(port.query(sql), key=repr) == sorted(ref.query(sql), key=repr)
+    assert len(port.query("select n_name, x from nation cross join unnest(array[1, 2]) as t(x)")) == 50
 
 
 # The second slice: joins of every shape the planner emits for TPC-H, the

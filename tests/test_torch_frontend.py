@@ -66,7 +66,15 @@ def test_unported_statements_and_patterns_name_their_roadmap_item(planners):
         eval_expr(Param(0, BIGINT), [], 1, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         MemoryConnector().create_table("t", [ColumnSchema("a", BIGINT)], bucketed_by=["a"])
+    # MATCH_RECOGNIZE named ROADMAP A.8b until its operator was ported: its
+    # pattern now compiles to the reference's VM program
+    from trino_tpu.ops.matchrec import compile_pattern as ref_compile
+    from trino_tpu.sql.parser import parse as ref_parse
     from trino_tpu_torch.ops.matchrec import compile_pattern
+    from trino_tpu_torch.sql.parser import parse
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8b"):
-        compile_pattern(None)
+    sql = ("select * from t match_recognize (order by ts measures first(a.ts) as f "
+           "one row per match pattern (a+? (b | c){1,3} d*) define a as x > 0)")
+    got = compile_pattern(parse(sql).select.relations[0].pattern)
+    want = ref_compile(ref_parse(sql).select.relations[0].pattern)
+    assert got == want and got[1] == ("a", "b", "c", "d")

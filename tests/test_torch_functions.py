@@ -5,7 +5,7 @@ shares, strings, regexps, float math, trig domains, dates, NULL-producing
 strings, functions in WHERE / GROUP BY, try_cast — plus varchar casts.
 String functions run once per distinct dictionary value on the host and
 gather by code; float math runs in f64 lanes.  The JSON and `sequence`
-cases wait for ROADMAP A.8b and A.9."""
+cases are in tests/test_torch_nested.py."""
 
 import math
 import re

@@ -18,8 +18,9 @@ packed transfer.
 The port handles TableScan, Values, Filter, Project, Compact, Aggregate,
 Distinct, Join (every kind, cross joins against a single row included),
 Concat (UNION ALL, and the union under INTERSECT / EXCEPT / UNION), Sort,
-TopN, Limit, EnforceSingleRow and Window; other nodes raise NotImplementedError
-naming their ROADMAP item.
+TopN, Limit, EnforceSingleRow, Window, Unnest and MatchRecognize; the
+distributed nodes (Exchange, RemoteSource) raise NotImplementedError naming
+their ROADMAP item.
 
 Two more facts ride the packed `required` transfer: EnforceSingleRow's live
 count (key -(nid+1); the host raises past one row) and each hash join's
@@ -40,22 +41,21 @@ import torch
 from .. import resolve_device
 from ..connectors.spi import CatalogManager
 from ..data.page import Column, Dictionary, Page
-from ..ops.expr import ColumnVal, column_val, eval_expr, eval_predicate, translate_codes
+from ..ops.expr import (
+    ColumnVal, clear_run_memos, column_val, eval_expr, eval_predicate, translate_codes,
+)
 from ..ops.relops import (
     AggSpec, SortSpec, broadcast_single_row, compact_rows, equi_join,
-    group_aggregate, limit_mask, sort_rows, top_n,
+    group_aggregate, limit_mask, sort_rows, top_n, unnest_expand,
 )
 from ..plan.nodes import (
     Aggregate, Compact, Concat, Distinct, EnforceSingleRow, Filter, Join, Limit,
-    PlanNode, Project, Sort, TableScan, TopN, Values, Window,
+    MatchRecognize, PlanNode, Project, Sort, TableScan, TopN, Unnest, Values, Window,
 )
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
-_ROADMAP_ITEM = {
-    "Unnest": "A.8b", "MatchRecognize": "A.8b",
-    "Exchange": "A.10", "RemoteSource": "A.10",
-}
+_ROADMAP_ITEM = {"Exchange": "A.10", "RemoteSource": "A.10"}
 
 
 @dataclass
@@ -123,6 +123,9 @@ class LocalExecutor:
         # otherwise need more doublings than the retry loop allows)
         self._learned_caps: dict[PlanNode, tuple[tuple, dict[int, int], frozenset]] = {}
         self.last_retries: list[dict] = []
+        # the packed `required` values of the last run: {node id: the size
+        # that capacity-sized node truly needed} (an Unnest's output rows)
+        self.last_required: dict[int, int] = {}
 
     # ------------------------------------------------------------- table IO
     def table_page(
@@ -222,6 +225,7 @@ class LocalExecutor:
         for _ in range(12):  # capacity-retry loop
             out_page, required = _trace_plan(plan, inputs, caps, sort_joins, self.device)
             required = _fetch_required(required)  # ONE device->host transfer
+            self.last_required = required
             for key, val in required.items():
                 if key < 0 and val > 1:
                     raise RuntimeError("Scalar sub-query has returned multiple rows")
@@ -351,6 +355,11 @@ class LocalExecutor:
                     _pow2(max(child_sizes[0], 1)),
                 )
                 return min(n.count, child_sizes[0])
+            if isinstance(n, Unnest):
+                # the fan-out is unknown before the run: guess 4x, and the
+                # retry loop corrects it
+                caps[nid] = _pow2(max(child_sizes[0] * 4, 1024))
+                return caps[nid]
             return child_sizes[0]
 
         size_of(0, nodes[0])
@@ -686,6 +695,28 @@ def _trace_plan(
             cols, live = window_eval(s.cols, s.live, part, okeys, ospecs, node.calls, argv)
             return _Stage(cols, live)
 
+        if isinstance(node, Unnest):
+            s = check_limbed(emit(node.child), "unnest")
+            dev = s.live.device
+            arrays = [eval_expr(a, s.cols, s.capacity, dev) for a in node.arrays]
+            cols, live, req = unnest_expand(
+                s.cols, s.live, arrays, node.element_types,
+                node.with_ordinality, node.outer, caps[nid],
+            )
+            report(nid, req)
+            return _Stage(cols, live)
+
+        if isinstance(node, MatchRecognize):
+            # a host operator: the pattern walk is a sequential backtracking
+            # VM.  The reference forces such plans off its traced path onto
+            # the eager one; this executor is always eager, so nothing more
+            # is needed here
+            from ..ops.matchrec import execute_match
+
+            s = emit(node.child)
+            cols, live = execute_match(node, s.cols, s.live)
+            return _Stage(cols, live)
+
         if isinstance(node, Values):
             dev = torch.device(device)
             cols = []
@@ -700,7 +731,7 @@ def _trace_plan(
         name = type(node).__name__
         raise NotImplementedError(
             f"plan node {name} is not ported to trino_tpu_torch yet "
-            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.8b-A.11')})"
+            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.10-A.11')})"
         )
 
     events = _kernels.begin_capture()
@@ -708,6 +739,7 @@ def _trace_plan(
         stage = emit(plan)
     finally:
         _kernels.end_capture()
+        clear_run_memos()
     _kernels.remember(plan, events)
     out_page = Page(
         tuple(

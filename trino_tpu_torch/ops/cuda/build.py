@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every source under trino_tpu_torch/csrc/ is compiled by ONE nvcc call into
+Every source under trino_tpu_torch/csrc/ is compiled by its own nvcc process,
+all started together, and the objects are linked into
 trino_tpu_torch/build/libtrino_kernels.so — a shared library with a plain C
-interface, loaded with ctypes (no torch headers, so the build takes seconds).
+interface, loaded with ctypes (no torch headers, so the build takes seconds:
+as long as the slowest source, plus the link).
 The build happens at first use, never at import: machines without nvcc can
 import every module and run the plain PyTorch versions on CPU tensors.
 
@@ -33,7 +35,7 @@ HASH_PATH = BUILD_DIR / "libtrino_kernels.sha256"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
@@ -81,20 +83,35 @@ def build_library(verbose: bool = False) -> dict:
         return {"seconds": 0.0, "cached": True, "log": ""}
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libtrino_kernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *[str(s) for s in sources]]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"libtrino_kernels.{tag}.so"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = []
+    for src, obj in zip(sources, objects):
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o in objects]]
+    logs, failed = [], None
+    for cmd, proc in compiles:  # every compile is waited for, failed or not
+        out, _ = proc.communicate()
+        logs.append(out or "")
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    if failed is None:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout or "")
+        if proc.returncode != 0:
+            failed = (link, proc.returncode)
     seconds = time.perf_counter() - t0
-    log = (proc.stdout or "") + (proc.stderr or "")
-    if proc.returncode != 0:
+    log = "".join(logs)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+        raise RuntimeError(f"nvcc failed (exit {failed[1]}): {' '.join(failed[0])}\n{log}")
     os.replace(tmp, LIB_PATH)
     HASH_PATH.write_text(want + "\n")
     return {"seconds": seconds, "cached": False, "log": log}

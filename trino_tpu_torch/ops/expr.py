@@ -23,12 +23,16 @@ substring, length, upper / lower / trim, replace, pads, split_part, the
 regexp family, concatenation) run once per distinct dictionary value on the
 host and the table is gathered by code on the device — the reference's
 design, and its DictionaryAwarePageProjection fast path made the only path.
-JSON, maps, rows, arrays and lambdas raise NotImplementedError naming
-ROADMAP A.8b; the prepared-statement fast path's parameters name A.9b.
+JSON functions, arrays, maps, rows and lambdas take the same route: a
+nested value is dictionary-coded (tuples on the host, int32 codes on the
+device), each function runs once per distinct value, and a lambda body is
+compiled once into a python closure that runs on the host (`_py_compile`).
+The prepared-statement fast path's parameters name ROADMAP A.9b.
 """
 
 from __future__ import annotations
 
+import itertools
 import re
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -37,16 +41,14 @@ import numpy as np
 import torch
 
 from ..data.page import Column, Dictionary
-from ..data.types import BOOLEAN, DATE, Type, VARCHAR, date_to_days
+from ..data.types import BOOLEAN, DATE, DOUBLE, Type, VARCHAR, date_to_days
 from ..plan.ir import Call, CaseWhen, Const, FieldRef, InListIr, IrExpr, LikeIr, Param
+from . import kernels as _kernels
 
 __all__ = [
     "ColumnVal", "eval_expr", "eval_predicate", "column_val", "to_column",
     "translate_codes",
 ]
-
-_NOT_PORTED = "not ported to trino_tpu_torch yet (ROADMAP A.8b: nested types, JSON and lambdas)"
-
 
 @dataclass
 class ColumnVal:
@@ -129,7 +131,11 @@ def eval_predicate(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) ->
 
 def _const_val(e: Const, n: int, dev: torch.device) -> ColumnVal:
     if e.type.is_array:
-        raise NotImplementedError(f"{e.type.name} literals are {_NOT_PORTED}")
+        # a one-entry dictionary holding the tuple, as a string literal is
+        # one entry; a NULL array keeps the shape with every lane invalid
+        d = Dictionary(_obj_array([() if e.value is None else tuple(e.value)]))
+        valid = None if e.value is not None else torch.zeros((n,), dtype=torch.bool, device=dev)
+        return ColumnVal(torch.zeros((n,), dtype=torch.int32, device=dev), valid, d, e.type)
     if e.type.is_string:
         # a one-entry dictionary: comparisons against it become a host table
         # over the other side's dictionary (_string_compare); a typed NULL
@@ -178,6 +184,10 @@ def _trunc_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> ColumnVal:
     op = e.op
+    if op in _HOF_OPS:
+        return _hof_fn(op, e, cols, n, dev)
+    if op == "map_construct":
+        return _map_construct(e, cols, n, dev)
     if op in ("and", "or"):
         return _kleene(op, e, cols, n, dev)
     if op == "not":
@@ -215,6 +225,8 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
         a = eval_expr(e.args[0], cols, n, dev)
         table = np.asarray([len(str(v)) for v in a.dict.values], dtype=np.int64)
         return ColumnVal(_gather_table(table, a), a.valid, None, e.type)
+    if op in _NESTED_OPS:
+        return _nested(op, e, [eval_expr(a, cols, n, dev) for a in e.args])
     if op in _STR_UNARY:
         return _dict_map_str(eval_expr(e.args[0], cols, n, dev), _STR_UNARY[op], e.type)
     if op in _STRING_FNS:
@@ -226,7 +238,7 @@ def _call(e: Call, cols: Sequence[ColumnVal], n: int, dev: torch.device) -> Colu
         operands = e.args[:1] if op == "date_trunc" else e.args
         return _scalar(op, e, [eval_expr(a, cols, n, dev) for a in operands])
     if op not in _ARITH:
-        raise NotImplementedError(f"operator {op} is {_NOT_PORTED}")
+        raise NotImplementedError(f"call op: {op}")
 
     args = [eval_expr(a, cols, n, dev) for a in e.args]
     if any(v.dict is not None for v in args):
@@ -339,11 +351,8 @@ def _scalar(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
     if any(v.dict is not None for v in args):
         raise NotImplementedError(f"{op} over varchar")
     if op == "round":
-        x = args[0].data
-        if len(e.args) == 2:
-            f = 10.0 ** int(_literal(e.args[1], "round() digits"))
-            return ColumnVal(torch.round(x * f) / f, valid, None, e.type)
-        return ColumnVal(torch.round(x), valid, None, e.type)
+        digits = int(_literal(e.args[1], "round() digits")) if len(e.args) == 2 else 0
+        return ColumnVal(_round_half_away(args[0].data, digits), valid, None, e.type)
     if op in ("floor", "ceil", "sqrt"):
         fn = {"floor": torch.floor, "ceil": torch.ceil, "sqrt": torch.sqrt}[op]
         return ColumnVal(fn(_f64(args[0])), valid, None, e.type)
@@ -413,6 +422,21 @@ def _scalar(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
     else:
         raise NotImplementedError(f"date_trunc unit {unit}")
     return ColumnVal(out.to(a.data.dtype), a.valid, None, DATE)
+
+
+def _round_half_away(x: torch.Tensor, digits: int) -> torch.Tensor:
+    """round(x, digits) with ties away from zero (Trino's MathFunctions.round:
+    sign(x) * floor(|x| * 10^d + 0.5) / 10^d).  A float already integral at
+    that scale (|x| * 10^d >= 2^52) is kept, since adding 0.5 there would
+    round in the last bit; integers round exactly in integer arithmetic."""
+    if x.is_floating_point():
+        f = 10.0 ** digits
+        y = torch.abs(x) * f
+        r = torch.where(y >= 2.0**52, y, torch.floor(y + 0.5))
+        return torch.sign(x) * r / f
+    if digits >= 0:
+        return x
+    return _round_div(x.to(torch.int64), 10 ** -digits).to(x.dtype) * 10 ** -digits
 
 
 def _numeric_align(a: torch.Tensor, b: torch.Tensor):
@@ -685,7 +709,7 @@ def _string_compare(op: str, args: list[ColumnVal]) -> ColumnVal:
     the (small) dictionary, gathered on the device by code."""
     a, b = args
     if a.dict is None or b.dict is None:
-        raise NotImplementedError(f"string {op} against a non-string value is {_NOT_PORTED}")
+        raise NotImplementedError(f"string {op} against a non-string value")
     valid = _and_valid(a.valid, b.valid)
     if len(b.dict) == 1:
         return _dict_vs_const(op, a, str(b.dict.values[0]), valid)
@@ -730,11 +754,14 @@ def _dict_vs_const(op: str, col: ColumnVal, const: str, valid) -> ColumnVal:
 def _gather_table(table: np.ndarray, col: ColumnVal) -> torch.Tensor:
     """A host table over `col`'s dictionary, gathered on the device by code
     (an empty dictionary has only dead or NULL lanes: they read entry 0)."""
+    return _gather(table, col.data.to(torch.int64).clamp(0, max(len(table) - 1, 0)))
+
+
+def _gather(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
+    """A host table uploaded once and gathered on the device at `idx`."""
     if len(table) == 0:
         table = np.zeros((1,), dtype=table.dtype)
-    return torch.from_numpy(table).to(col.data.device).index_select(
-        0, col.data.to(torch.int64).clamp(0, len(table) - 1)
-    )
+    return torch.from_numpy(np.ascontiguousarray(table)).to(idx.device).index_select(0, idx)
 
 
 _STR_UNARY = {
@@ -954,3 +981,619 @@ def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch
     doy = _fdiv(153 * (m + torch.where(m > 2, -3, 9)) + 2, 5) + d - 1
     doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
     return era * 146097 + doe - 719468
+
+
+# ------------------------------------------------------------ nested values
+#
+# Arrays, maps and rows are dictionary-coded host objects, as VARCHAR is: a
+# column holds int32 codes on the device, and `Dictionary.values` is an
+# object array of tuples (arrays), key-sorted pair tuples (maps) or field
+# tuples (rows).  Each function runs once per DISTINCT value on the host;
+# the device gathers the result table by code.  JSON functions read VARCHAR
+# dictionaries the same way.
+
+_HOF_OPS = frozenset({
+    "transform", "filter_arr", "reduce", "any_match", "all_match",
+    "none_match", "zip_with", "transform_keys", "transform_values",
+    "map_filter",
+})
+
+_JSON_OPS = frozenset({"json_extract_scalar", "json_extract", "json_array_length", "json_size"})
+
+_ARRAY_OPS = frozenset({
+    "cardinality", "element_at", "contains", "array_position", "array_distinct",
+    "array_sort", "array_join", "array_min", "array_max",
+})
+
+_NESTED_OPS = _JSON_OPS | _ARRAY_OPS | {"map_element_at", "map_keys", "map_values",
+                                        "row_field", "split"}
+
+
+def _nested(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
+    if op in _JSON_OPS:
+        return _json_fn(op, e, args[0])
+    if op in ("map_element_at", "map_keys", "map_values") or (
+        op == "cardinality" and e.args[0].type.is_map
+    ):
+        return _map_fn(op, e, args[0])
+    if op == "row_field":
+        return _row_field(e, args[0])
+    if op == "split":
+        # distinct strings split into distinct arrays (joining the parts
+        # gives the string back), so the codes carry over unchanged
+        delim = _const_str(e.args[1])
+        a = args[0]
+        _kernels.record_dispatch("host_pass", "host", str(len(a.dict)))
+        parts = _obj_array([tuple(str(v).split(delim)) for v in a.dict.values] or [()])
+        return ColumnVal(a.data, a.valid, Dictionary(parts), e.type)
+    return _array_fn(op, e, args)
+
+
+def _const_str(e_arg) -> str:
+    return str(_literal(e_arg, "argument"))
+
+
+def _obj_array(items) -> np.ndarray:
+    """Object ndarray of python values built element by element (np.asarray
+    would turn equal-length tuples into a 2-D array)."""
+    out = np.empty(len(items), dtype=object)
+    for i, v in enumerate(items):
+        out[i] = v
+    return out
+
+
+def _intern(values: list, empty) -> tuple[np.ndarray, Dictionary]:
+    """(remap, Dictionary) of per-distinct host results: remap[i] is the
+    code of values[i].  Interned by hash, not sorted: tuples may hold None
+    beside values, which a sort cannot order.  An empty input keeps one
+    `empty` entry, so a gather always has a row to read."""
+    uniq = list(dict.fromkeys(values))  # first occurrences, in order
+    index = dict(zip(uniq, range(len(uniq))))
+    remap = np.fromiter(map(index.__getitem__, values), dtype=np.int32, count=len(values))
+    return remap, Dictionary(_obj_array(uniq or [empty]))
+
+
+def _codes(v: ColumnVal) -> torch.Tensor:
+    """`v`'s dictionary codes as int64 gather indices, clamped into the
+    dictionary (dead and NULL lanes may hold any code)."""
+    return v.data.to(torch.int64).clamp(0, max(len(v.dict) - 1, 0))
+
+
+def _host_out(picked: list, idx: torch.Tensor, valid, t: Type) -> ColumnVal:
+    """Per-distinct host results (None = SQL NULL) as a column of type `t`,
+    gathered at `idx`: an interned dictionary for varchar and nested types,
+    a value table otherwise; the NULLs merge into `valid`."""
+    _kernels.record_dispatch("host_pass", "host", str(len(picked)))
+    if None in picked:
+        ok = np.fromiter((p is not None for p in picked), dtype=np.bool_, count=len(picked))
+        valid = _and_valid(valid, _gather(ok, idx))
+    if t.is_string or t.is_dict_object:
+        empty = "" if t.is_string else ()
+        remap, d = _intern([empty if p is None else p for p in picked], empty)
+        return ColumnVal(_gather(remap, idx), valid, d, t)
+    table = np.asarray([0 if p is None else p for p in picked], dtype=t.np_dtype)
+    return ColumnVal(_gather(table, idx), valid, None, t)
+
+
+# ---- JSON (the reference's JsonFunctions over the path subset below)
+
+
+def _json_path(path: str) -> list:
+    """The JSONPath subset '$', '$.key', '$[i]', '$["key"]' and chains of
+    them ('$.a[1].b'); any other syntax is an error, never a prefix match."""
+    if not path.startswith("$"):
+        raise ValueError(f"invalid JSON path: {path!r}")
+    steps: list = []
+    pos = 0
+    rest = path[1:]
+    for m in re.finditer(r"\.([A-Za-z_][A-Za-z0-9_]*)|\[(\d+)\]|\[\"([^\"]+)\"\]", rest):
+        if m.start() != pos:  # an unparsed segment
+            raise ValueError(f"unsupported JSON path: {path!r}")
+        pos = m.end()
+        if m.group(1) is not None:
+            steps.append(m.group(1))
+        elif m.group(2) is not None:
+            steps.append(int(m.group(2)))
+        else:
+            steps.append(m.group(3))
+    if pos != len(rest):
+        raise ValueError(f"unsupported JSON path: {path!r}")
+    return steps
+
+
+_MALFORMED = object()  # a document that does not parse
+
+# JSON documents parsed during the current plan run, by dictionary: several
+# JSON functions over one column (a path, a size, an extraction) parse each
+# distinct document once per run.  Cleared when the run ends
+# (exec/compiler.py _trace_plan), so nothing parsed outlives its statement.
+_PARSED: dict = {}
+
+
+def _json_docs(d: Dictionary) -> list:
+    """The parsed documents of `d`'s values (_MALFORMED where one does not
+    parse)."""
+    import json
+
+    hit = _PARSED.get(id(d))
+    if hit is not None and hit[0] is d:
+        return hit[1]
+    decode = json.JSONDecoder().decode
+    docs = []
+    for v in d.values:
+        try:
+            docs.append(decode(str(v)))
+        except ValueError:
+            docs.append(_MALFORMED)
+    _PARSED[id(d)] = (d, docs)
+    return docs
+
+
+def clear_run_memos() -> None:
+    """Forget what the current plan run parsed (called when a run ends)."""
+    _PARSED.clear()
+
+
+def _json_walk(v, steps: list):
+    """(value, found) of `steps` in the parsed document `v`; a malformed
+    document and a missing step are not found."""
+    if v is _MALFORMED:
+        return None, False
+    for s in steps:
+        if isinstance(s, int):
+            if not isinstance(v, list) or s >= len(v):
+                return None, False
+        elif not isinstance(v, dict) or s not in v:
+            return None, False
+        v = v[s]
+    return v, True
+
+
+def _json_fn(op: str, e: Call, a: ColumnVal) -> ColumnVal:
+    """json_extract_scalar / json_extract / json_array_length / json_size:
+    each distinct document parsed once per run on the host; what is not
+    found (or is malformed) is NULL."""
+    import json
+
+    steps = _json_path(_const_str(e.args[1])) if len(e.args) > 1 else []
+    encode = json.JSONEncoder(separators=(",", ":")).encode
+    raw = []
+    for doc in _json_docs(a.dict):
+        val, found = _json_walk(doc, steps)
+        if op == "json_extract_scalar":
+            if not found or val is None or isinstance(val, (dict, list)):
+                raw.append(None)
+            elif isinstance(val, bool):
+                raw.append("true" if val else "false")
+            else:
+                raw.append(str(val))
+        elif op == "json_extract":
+            raw.append(encode(val) if found else None)
+        elif op == "json_array_length":
+            raw.append(len(val) if found and isinstance(val, list) else None)
+        elif not found:  # json_size: members of an object or array, 0 for scalars
+            raw.append(None)
+        else:
+            raw.append(len(val) if isinstance(val, (dict, list)) else 0)
+    return _host_out(raw, _codes(a), a.valid, e.type)
+
+
+# ---- maps and rows
+
+
+def _canon_pairs(d: dict) -> tuple:
+    """A map's canonical form: its (key, value) pairs sorted by key (by the
+    keys' repr where they do not compare)."""
+    try:
+        return tuple(sorted(d.items()))
+    except TypeError:
+        return tuple(sorted(d.items(), key=lambda it: repr(it[0])))
+
+
+def _map_fn(op: str, e: Call, m: ColumnVal) -> ColumnVal:
+    """cardinality / map_keys / map_values / map_element_at (literal key; a
+    missing key is NULL) over a map column."""
+    vals = m.dict.values
+    if op == "cardinality":
+        picked = [len(v) for v in vals]
+    elif op in ("map_keys", "map_values"):
+        ix = 0 if op == "map_keys" else 1
+        picked = [tuple(p[ix] for p in v) for v in vals]
+    else:
+        want = _literal(e.args[1], "map subscript key")
+        picked = [dict(v).get(want) for v in vals]
+    return _host_out(picked, _codes(m), m.valid, e.type)
+
+
+def _row_field(e: Call, r: ColumnVal) -> ColumnVal:
+    """row.field: a per-distinct field table gathered by row code.  A NULL
+    nested field reads as an empty value, as in the reference."""
+    ix = int(_literal(e.args[1], "row field index"))
+    picked = [v[ix] if ix < len(v) else None for v in r.dict.values]
+    if e.type.is_dict_object:
+        picked = [() if p is None else p for p in picked]
+    return _host_out(picked, _codes(r), r.valid, e.type)
+
+
+def _map_construct(e: Call, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """map(keys array, values array): one canonical map per occurring pair
+    of codes; arrays of different lengths give NULL."""
+    a = eval_expr(e.args[0], cols, n, dev)
+    b = eval_expr(e.args[1], cols, n, dev)
+
+    def build(ks, vs):
+        return None if len(ks) != len(vs) else _canon_pairs(dict(zip(ks, vs)))
+
+    return _pair_out(a, b, build, e.type)
+
+
+def _pair_out(a: ColumnVal, b: ColumnVal, fn, t: Type) -> ColumnVal:
+    """fn(a value, b value) over the pairs of codes that occur: the pair
+    keys are made unique on the device, one host pass runs per occurring
+    pair, and the table is gathered back through the inverse.  (A table
+    over every |A| x |B| pair, the reference's, grows as a product: 10^10
+    entries for two columns of 10^5 distinct arrays.)"""
+    nb = max(len(b.dict), 1)
+    key = _codes(a) * nb + _codes(b)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    picked = [fn(a.dict.values[k // nb], b.dict.values[k % nb]) for k in uniq.tolist()]
+    return _host_out(picked, inv.reshape(-1), _and_valid(a.valid, b.valid), t)
+
+
+# ---- lambdas
+
+
+def _round_py(x, digits: int = 0):
+    """round() inside a lambda body, ties away from zero as in the column
+    path."""
+    if isinstance(x, int):
+        if digits >= 0:
+            return x
+        div = 10 ** -digits
+        return (1 if x >= 0 else -1) * ((abs(x) + div // 2) // div) * div
+    import math
+
+    f = 10.0 ** digits
+    y = abs(x) * f
+    r = y if y >= 2.0**52 else math.floor(y + 0.5)
+    return math.copysign(r / f, x)
+
+
+def _py_compile(ir):
+    """A lambda body compiled once into a python closure over an environment
+    of python scalars, env -> value (None is SQL NULL).  The reference
+    interprets the IR tree for every element; Trino compiles the body to
+    bytecode (LambdaBytecodeGenerator) — closures are the host's
+    equivalent, and with dictionary interning each body runs once per
+    element of each distinct value."""
+    import math
+    import operator
+
+    from ..plan.ir import LambdaVarIr
+
+    if isinstance(ir, Const):
+        v = ir.value
+        if v is not None and ir.type.is_decimal:
+            v = v / (10.0 ** ir.type.scale)
+        return lambda env: v
+    if isinstance(ir, LambdaVarIr):
+        name = ir.name
+        return lambda env: env[name]
+    if isinstance(ir, CaseWhen):
+        whens = [(_py_compile(c), _py_compile(r)) for c, r in ir.whens]
+        default = None if ir.default is None else _py_compile(ir.default)
+
+        def case(env):
+            for cond, res in whens:
+                if cond(env) is True:
+                    return res(env)
+            return None if default is None else default(env)
+
+        return case
+    if isinstance(ir, (InListIr, LikeIr)):
+        operand, negated = _py_compile(ir.operand), ir.negated
+        if isinstance(ir, InListIr):
+            values = ir.values
+            test = lambda v: v in values
+        else:
+            rx = _like_regex(ir.pattern)
+            test = lambda v: bool(rx.match(str(v)))
+
+        def member(env):
+            v = operand(env)
+            return None if v is None else test(v) != negated
+
+        return member
+    if not isinstance(ir, Call):
+        raise NotImplementedError(f"lambda body node {type(ir).__name__}")
+
+    op = ir.op
+    args = [_py_compile(a) for a in ir.args]
+    if op in ("and", "or"):
+        decisive = op == "or"  # True decides OR, False decides AND
+
+        def kleene(env):
+            vals = [a(env) for a in args]
+            if any(v is decisive for v in vals):
+                return decisive
+            return None if any(v is None for v in vals) else not decisive
+
+        return kleene
+    if op == "not":
+        (a,) = args
+        return lambda env: (lambda v: None if v is None else not v)(a(env))
+    if op == "is_null":
+        (a,) = args
+        return lambda env: a(env) is None
+    if op == "coalesce":
+        def coalesce(env):
+            for a in args:
+                v = a(env)
+                if v is not None:
+                    return v
+            return None
+
+        return coalesce
+    if op == "cast":
+        t = ir.type
+        conv = (str if t.is_string else float if (t.is_floating or t.is_decimal)
+                else int if t.is_integer else (lambda v: v))
+        (a,) = args
+        return lambda env: (lambda v: None if v is None else conv(v))(a(env))
+
+    def div(a, b):
+        if b == 0:
+            return None
+        if isinstance(a, int) and isinstance(b, int):
+            # SQL truncates toward zero; exact in python ints
+            q = abs(a) // abs(b)
+            return -q if (a < 0) != (b < 0) else q
+        return a / b
+
+    def mod(a, b):
+        if b == 0:
+            return None
+        if isinstance(a, int) and isinstance(b, int):
+            r = abs(a) % abs(b)  # the sign of the dividend
+            return -r if a < 0 else r
+        return a - b * float(math.trunc(a / b))
+
+    fn = {
+        "add": operator.add, "sub": operator.sub, "mul": operator.mul,
+        "div": div, "mod": mod, "neg": operator.neg, "abs": abs,
+        "eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
+        "le": operator.le, "gt": operator.gt, "ge": operator.ge,
+        "length": lambda v: len(str(v)),
+        "concat_str": lambda *vs: "".join(str(v) for v in vs),
+        "nullif": lambda a, b: None if a == b else a,
+        "sqrt": lambda v: math.sqrt(v) if v >= 0 else None,
+        "ln": lambda v: math.log(v) if v > 0 else None,
+        "exp": math.exp,
+        "floor": lambda v: float(math.floor(v)),
+        "ceil": lambda v: float(math.ceil(v)),
+        "round": lambda v, d=0: _round_py(v, int(d)),
+        "power": lambda a, b: float(a) ** float(b),
+        **{k: (lambda f: lambda v: f(str(v)))(f) for k, f in _STR_UNARY.items()
+           if k != "reverse_str"},
+    }.get(op)
+    if fn is None:
+        raise NotImplementedError(f"lambda body op {op}")
+    if len(args) == 1:
+        (a,) = args
+        return lambda env: (lambda v: None if v is None else fn(v))(a(env))
+    if len(args) == 2:
+        a, b = args
+
+        def binary(env):
+            x, y = a(env), b(env)
+            return None if x is None or y is None else fn(x, y)
+
+        return binary
+
+    def strict(env):  # NULL in, NULL out
+        vals = [a(env) for a in args]
+        return None if any(v is None for v in vals) else fn(*vals)
+
+    return strict
+
+
+def _coerce_elem(v, t: Type):
+    """A lambda result in the canonical python form of `t` (numpy scalars
+    become python values; decimal results stay floats)."""
+    if v is None:
+        return None
+    if isinstance(v, np.generic):
+        v = v.item()
+    if t.is_integer:
+        return int(v)
+    if t.is_floating:
+        return float(v)
+    if t.is_string:
+        return str(v)
+    return v
+
+
+def _hof_fn(op: str, e: Call, cols: Sequence[ColumnVal], n: int, dev) -> ColumnVal:
+    """Higher-order functions over array and map columns: the lambda body
+    is interpreted once per distinct container value on the host, and the
+    device gathers the result by code."""
+    a = eval_expr(e.args[0], cols, n, dev)
+    vals = a.dict.values
+
+    def out(picked, t=e.type) -> ColumnVal:
+        return _host_out(picked, _codes(a), a.valid, t)
+
+    if op == "zip_with":
+        b = eval_expr(e.args[1], cols, n, dev)
+        lam = e.args[2]
+        xp, yp = lam.params
+        et = e.type.element
+        body = _py_compile(lam.body)
+
+        def zipped(va, vb):
+            ln = max(len(va), len(vb))
+            pa = tuple(va) + (None,) * (ln - len(va))
+            pb = tuple(vb) + (None,) * (ln - len(vb))
+            return tuple(_coerce_elem(body({xp: x, yp: y}), et) for x, y in zip(pa, pb))
+
+        return _pair_out(a, b, zipped, e.type)
+    if op == "reduce":
+        init_ir, comb, fin = e.args[1], e.args[2], e.args[3]
+        init = _py_compile(init_ir)({})
+        sp, xp = comb.params
+        step, finish, fp = _py_compile(comb.body), _py_compile(fin.body), fin.params[0]
+        picked = []
+        for v in vals:
+            state = init
+            for x in v:
+                state = step({sp: state, xp: x})
+            picked.append(_coerce_elem(finish({fp: state}), e.type))
+        return out(picked)
+    lam = e.args[1]
+    body = _py_compile(lam.body)
+    if op == "transform":
+        p, et = lam.params[0], e.type.element
+        return out([tuple(_coerce_elem(body({p: x}), et) for x in v) for v in vals])
+    if op == "filter_arr":
+        p = lam.params[0]
+        return out([tuple(x for x in v if body({p: x}) is True) for v in vals])
+    if op in ("any_match", "all_match", "none_match"):
+        p = lam.params[0]
+        # the result that decides, what it gives, and what an undecided
+        # walk gives (NULL when any element's predicate was NULL)
+        decide, gives = {"any_match": (True, True), "all_match": (False, False),
+                         "none_match": (True, False)}[op]
+        picked = []
+        for v in vals:
+            results = [body({p: x}) for x in v]
+            if any(r is decide for r in results):
+                picked.append(gives)
+            else:
+                picked.append(None if any(r is None for r in results) else not gives)
+        return out(picked)
+    # map HOFs: values are key-sorted tuples of (key, value) pairs
+    kp, vp = lam.params
+    if op == "transform_keys":
+        kt = e.type.key
+        return out([
+            _canon_pairs({_coerce_elem(body({kp: k, vp: v}), kt): v
+                          for k, v in m})
+            for m in vals
+        ])
+    if op == "transform_values":
+        vt = e.type.value
+        return out([
+            tuple((k, _coerce_elem(body({kp: k, vp: v}), vt)) for k, v in m)
+            for m in vals
+        ])
+    # map_filter
+    return out([
+        tuple((k, v) for k, v in m if body({kp: k, vp: v}) is True)
+        for m in vals
+    ])
+
+
+# ---- arrays
+
+
+def array_elements(vals: np.ndarray, et: Type, device) -> tuple:
+    """The elements of the distinct arrays `vals` in flat form (CSR) on
+    `device`: (starts, elements, element dictionary).  Array c's elements
+    are elements[starts[c]:starts[c + 1]].  A varchar element is a code
+    into the dictionary, which is built once for the call; a NULL numeric
+    element reads 0, as in the reference's element matrix."""
+    lens = np.fromiter(map(len, vals), dtype=np.int64, count=len(vals))
+    starts = np.zeros((len(vals) + 1,), dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    total = int(starts[-1])
+    _kernels.record_dispatch("host_pass", "host", str(total))
+    elements = list(itertools.chain.from_iterable(vals))
+    if et.is_string:
+        flat, ed = _intern(list(map(str, elements)), "")
+    else:
+        if None in elements:
+            elements = [0 if x is None else x for x in elements]
+        flat = np.asarray(elements, dtype=et.np_dtype).reshape(-1)
+        ed = None
+    if total == 0:
+        flat = np.zeros((1,), dtype=flat.dtype)
+    dev = torch.device(device)
+    return torch.from_numpy(starts).to(dev), torch.from_numpy(flat).to(dev), ed
+
+
+def _array_fn(op: str, e: Call, args: list[ColumnVal]) -> ColumnVal:
+    """Array functions over array columns, once per distinct array on the
+    host (element_at and contains with a per-row operand gather the flat
+    element table on the device)."""
+    a = args[0]
+    vals = a.dict.values
+    code = _codes(a)
+
+    def out(picked, t=e.type) -> ColumnVal:
+        return _host_out(picked, code, a.valid, t)
+
+    if op == "cardinality":
+        return out([len(v) for v in vals])
+    if op == "element_at":
+        if isinstance(e.args[1], Const):
+            i = int(e.args[1].value)
+            # 1-based, negative counts from the end; out of bounds is NULL
+            return out([None if i == 0 or abs(i) > len(v) else v[i - 1 if i > 0 else i]
+                        for v in vals])
+        starts, flat, ed = array_elements(vals, e.type, code.device)
+        ix = args[1].data.to(torch.int64)
+        lo = starts.index_select(0, code)
+        ln = starts.index_select(0, code + 1) - lo
+        pos = torch.where(ix > 0, ix - 1, ln + ix)
+        ok = (pos >= 0) & (pos < ln)
+        at = (lo + pos.clamp(min=0)).clamp(max=flat.shape[0] - 1)
+        valid = _and_valid(_and_valid(a.valid, args[1].valid), ok)
+        return ColumnVal(flat.index_select(0, at), valid, ed, e.type)
+    if op == "contains":
+        if isinstance(e.args[1], Const):
+            want = e.args[1].value
+            return out([any(el == want for el in v) for v in vals])
+        return _contains_lane(a, args[1], code)
+    if op == "array_position":
+        want = _literal(e.args[1], "array_position needle")
+        return out([next((i + 1 for i, el in enumerate(v) if el == want), 0) for v in vals])
+    if op == "array_distinct":
+        return out([tuple(dict.fromkeys(v)) for v in vals])
+    if op == "array_sort":  # NULL elements last
+        return out([tuple(sorted(x for x in v if x is not None))
+                    + (None,) * sum(1 for x in v if x is None) for v in vals])
+    if op == "array_join":
+        delim = _const_str(e.args[1])
+        return out([delim.join(str(x) for x in v) for v in vals], VARCHAR)
+    if op in ("array_min", "array_max"):
+        # empty, or any NULL element, is NULL
+        f = min if op == "array_min" else max
+        picked = [None if not len(v) or any(x is None for x in v) else f(v) for v in vals]
+        if e.type.is_string:
+            picked = [None if p is None else str(p) for p in picked]
+        return out(picked)
+    raise NotImplementedError(f"array op {op}")
+
+
+def _contains_lane(a: ColumnVal, x: ColumnVal, code: torch.Tensor) -> ColumnVal:
+    """contains(array, per-row needle): each row's elements gathered from
+    the flat element table into a [rows, longest array] frame and compared
+    with the needle (varchar elements in the needle's code space)."""
+    vals = a.dict.values
+    if x.dict is not None:
+        starts, flat, ed = array_elements(vals, VARCHAR, code.device)
+        # element codes -> the needle's code space (-2: absent, never equal)
+        trans = np.asarray([x.dict.code_of(str(v)) for v in ed.values], dtype=np.int64)
+        flat = _gather(np.where(trans < 0, -2, trans), flat.to(torch.int64))
+        needle = x.data.to(torch.int64)
+    else:
+        starts, flat, _ = array_elements(vals, DOUBLE, code.device)
+        needle = x.data.to(torch.float64)
+    lo = starts.index_select(0, code)
+    ln = starts.index_select(0, code + 1) - lo
+    width = max(1, int((starts[1:] - starts[:-1]).max()) if len(vals) else 1)
+    at = lo[:, None] + torch.arange(width, device=code.device)[None, :]
+    inlen = torch.arange(width, device=code.device)[None, :] < ln[:, None]
+    rows = flat.index_select(0, at.clamp(max=flat.shape[0] - 1).reshape(-1)).reshape(at.shape)
+    hit = ((rows == needle[:, None]) & inlen).any(dim=1)
+    return ColumnVal(hit, _and_valid(a.valid, x.valid), None, BOOLEAN)

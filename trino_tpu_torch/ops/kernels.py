@@ -17,7 +17,9 @@ and observed:
   * events_for(plan) — the captured events of the last trace of `plan`
     (plans are frozen dataclasses, so they key a bounded dict directly).
 
-op values: segment_reduce | fused_pipeline | group_by | join | topn.
+op values: segment_reduce | fused_pipeline | group_by | join | topn, and
+host_pass: one pass of a nested-value function (ops/expr.py) over distinct
+values or array elements on the host, its detail the number of values.
 
 impl values: "cuda" = the hand-written CUDA kernel was launched; "torch" =
 the kernel's plain PyTorch version ran, which happens only for tensors that
@@ -25,7 +27,7 @@ live on the CPU; "sort" = a static gate chose the sort-based path (kernels
 off, keys the hash table cannot carry, a TopN too small or too long for
 radix select); "fallback" = the hash table's capacity tier is past the
 session limit (hash_agg_kernel_limit / hash_join_kernel_limit), so the
-sort path runs.
+sort path runs; "host" = a host_pass.
 
 The hash limits default to the card's, not the reference's VMEM table
 (2048): 2^24 keys is a 2^25-slot table, under 1 GiB for 6-word keys.

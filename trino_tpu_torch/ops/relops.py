@@ -15,7 +15,8 @@ plus a `live` mask; dead lanes carry garbage and are never branched on.
   ops/cuda/hashjoin.py); the sort path (combined hash, sort, searchsorted)
   is its exit; both feed one match-expansion tail;
 - `top_n` by radix select (kernel 5, ops/cuda/topk.py) or a sort;
-- `sort_rows`, `limit_mask`, `compact_rows`, `broadcast_single_row`.
+- `sort_rows`, `limit_mask`, `compact_rows`, `broadcast_single_row`;
+- `unnest_expand`: rows expanded by their arrays' lengths.
 
 Value-sorted aggregates (count DISTINCT, approx_percentile) take the sort
 path: the rows sort by the group keys and then by the argument, so first
@@ -34,11 +35,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .expr import ColumnVal
+from ..data.types import BIGINT
+from .expr import ColumnVal, _codes, array_elements
 
 __all__ = [
     "group_aggregate", "equi_join", "broadcast_single_row", "sort_rows",
-    "compact_rows", "top_n", "limit_mask", "AggSpec", "SortSpec",
+    "compact_rows", "top_n", "limit_mask", "unnest_expand", "AggSpec", "SortSpec",
 ]
 
 
@@ -1467,3 +1469,68 @@ def top_n(cols, live, keys, specs, count: int, cap: Optional[int] = None):
 
 def limit_mask(live: torch.Tensor, count: int) -> torch.Tensor:
     return live & (torch.cumsum(live.to(torch.int64), 0) <= count)
+
+
+def unnest_expand(
+    cols: Sequence[ColumnVal],
+    live: torch.Tensor,
+    arrays: Sequence[ColumnVal],
+    elem_types,
+    with_ordinality: bool,
+    outer: bool,
+    C: int,
+):
+    """Expand rows by array length (reference: operator/unnest/
+    UnnestOperator).  Returns (columns, live, required): the child's columns
+    gathered per output row, one element column per array, the ordinality
+    when asked, and the true output size for the capacity-retry loop.
+
+    Arrays are dictionary-coded; each distinct array's elements go to the
+    device once, flat, with their start offsets (ops/expr.py
+    array_elements), and element `pos` of a row is read at
+    starts[code] + pos — so one long array does not widen every row, as
+    the reference's padded [distinct, longest] element matrix does.  The
+    expansion: an inclusive scan of the row lengths, then a sorted lookup of
+    each output lane's source row.  Several arrays zip (Trino semantics):
+    a row extends to its longest array, the shorter ones NULL-pad.  `outer`
+    keeps an empty or NULL array's row with NULL elements and a NULL
+    ordinality (LEFT JOIN UNNEST ... ON TRUE)."""
+    n = int(live.shape[0])
+    dev = live.device
+    row_lens = torch.zeros((n,), dtype=torch.int64, device=dev)
+    flats = []
+    for arr, et in zip(arrays, elem_types):
+        starts, flat, ed = array_elements(arr.dict.values, et, dev)
+        code = _codes(arr)
+        lo = starts.index_select(0, code)
+        ln = starts.index_select(0, code + 1) - lo
+        if arr.valid is not None:
+            ln = torch.where(arr.valid, ln, torch.zeros_like(ln))
+        row_lens = torch.maximum(row_lens, ln)
+        flats.append((arr, et, lo, ln, flat, ed))
+    row_lens = torch.where(live, row_lens, torch.zeros_like(row_lens))
+    pre_outer = row_lens
+    if outer:
+        row_lens = torch.where(live & (row_lens == 0), torch.ones_like(row_lens), row_lens)
+
+    ends = torch.cumsum(row_lens, 0)
+    total = ends[-1] if n else torch.zeros((), dtype=torch.int64, device=dev)
+    j = torch.arange(C, dtype=torch.int64, device=dev)
+    src = searchsorted_tpu(ends, j, side="right").clamp(0, max(n - 1, 0))
+    pos = j - (ends - row_lens).index_select(0, src)
+    out_live = j < total
+
+    out_cols = [
+        ColumnVal(cv.data.index_select(0, src), _take(cv.valid, src), cv.dict, cv.type)
+        for cv in cols
+    ]
+    for arr, et, lo, ln, flat, ed in flats:
+        at = (lo.index_select(0, src) + pos).clamp(0, flat.shape[0] - 1)
+        valid = out_live & (pos < ln.index_select(0, src))
+        if arr.valid is not None:
+            valid = valid & arr.valid.index_select(0, src)
+        out_cols.append(ColumnVal(flat.index_select(0, at), valid, ed, et))
+    if with_ordinality:
+        ord_valid = out_live & (pos < pre_outer.index_select(0, src)) if outer else None
+        out_cols.append(ColumnVal(pos + 1, ord_valid, None, BIGINT))
+    return out_cols, out_live, total

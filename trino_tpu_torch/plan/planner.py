@@ -28,6 +28,7 @@ sql/planner/iterative/rule/ this engine needs) into one pass:
 
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -2098,7 +2099,7 @@ class _Translator:
         a = _cast_ir(a, out_t)
         b = _cast_ir(b, out_t)
         if isinstance(a, Const) and isinstance(b, Const) and a.value is not None and b.value is not None:
-            return Const(_fold_arith(op, a.value, b.value), out_t)
+            return Const(_fold_arith(op, a.value, b.value, out_t), out_t)
         return Call(op, (a, b), out_t)
 
     _HOF_FNS = {
@@ -2561,18 +2562,49 @@ def _cast_const(v, target: Type, source: Type = UNKNOWN):
     return v
 
 
-def _fold_arith(op: str, a, b):
+class NumericValueOutOfRange(OverflowError):
+    """An integer constant expression whose result leaves its type's range
+    (Trino's NUMERIC_VALUE_OUT_OF_RANGE, e.g. "bigint addition overflow:
+    9223372036854775807 + 1")."""
+
+    error_code = "NUMERIC_VALUE_OUT_OF_RANGE"
+
+
+_OP_WORDS = {
+    "add": ("addition", "+"), "sub": ("subtraction", "-"),
+    "mul": ("multiplication", "*"), "div": ("division", "/"), "mod": ("modulus", "%"),
+}
+
+
+def _fold_arith(op: str, a, b, out_t: Type = UNKNOWN):
+    """`a op b` over two constants.  Integer division and modulus truncate
+    toward zero in exact integer arithmetic (the sign of the dividend for
+    the modulus), as the column path and Trino do.  An integer result
+    outside `out_t`'s range raises NumericValueOutOfRange."""
     if op == "add":
-        return a + b
-    if op == "sub":
-        return a - b
-    if op == "mul":
-        return a * b
-    if op == "div":
-        return a / b if isinstance(a, float) or isinstance(b, float) else a // b
-    if op == "mod":
-        return a % b
-    raise AssertionError(op)
+        out = a + b
+    elif op == "sub":
+        out = a - b
+    elif op == "mul":
+        out = a * b
+    elif isinstance(a, float) or isinstance(b, float):
+        if b == 0:
+            raise ZeroDivisionError(f"float {_OP_WORDS[op][0]} by zero")
+        return a / b if op == "div" else math.fmod(a, b)
+    elif op == "div":
+        q = abs(a) // abs(b)
+        out = -q if (a < 0) != (b < 0) else q
+    elif op == "mod":
+        r = abs(a) % abs(b)
+        out = -r if a < 0 else r
+    else:
+        raise AssertionError(op)
+    if isinstance(out, int) and out_t.is_integer:
+        bits = out_t.np_dtype.itemsize * 8
+        if not -(1 << (bits - 1)) <= out < (1 << (bits - 1)):
+            word, sym = _OP_WORDS[op]
+            raise NumericValueOutOfRange(f"{out_t.name} {word} overflow: {a} {sym} {b}")
+    return out
 
 
 def _date_add_const(days: int, n: int, unit: str) -> int:

@@ -64,6 +64,18 @@ def _rescale_column(arr, src_type, dst_type):
     return np.ma.MaskedArray(out, mask=mask) if mask is not None else out
 
 
+def _null_column(t, n: int) -> np.ma.MaskedArray:
+    """`n` NULLs of type `t`: every lane masked, over the type's empty
+    value ("" for VARCHAR, () for arrays / maps / rows, 0 otherwise) so the
+    column concatenates and dictionary-encodes with the table's values."""
+    if t.is_string or t.is_dict_object:
+        fill = np.empty((n,), dtype=object)
+        fill.fill("" if t.is_string else ())
+    else:
+        fill = np.zeros((n,), dtype=t.np_dtype)
+    return np.ma.MaskedArray(fill, mask=np.ones((n,), dtype=bool))
+
+
 class Engine:
     """`device` is where table pages live and operators run: the CUDA card by
     default (raises when there is none), the CPU only on request."""
@@ -562,11 +574,9 @@ class Engine:
             else:
                 data[cname] = np.asarray(arr).astype(t.np_dtype)
         n = len(cols[0]) if cols else 0
-        for c in schema.columns:  # unreferenced columns default to zero values
+        for c in schema.columns:  # a column left out of the list is NULL
             if c.name not in data:
-                data[c.name] = np.zeros(
-                    (n,), dtype=object if c.type.is_string else c.type.np_dtype
-                )
+                data[c.name] = _null_column(c.type, n)
         stage.stage_insert(data)
         return n
 
@@ -606,10 +616,8 @@ class Engine:
                 data[cname] = np.asarray(
                     col, dtype=object if typ.is_string else typ.np_dtype
                 )
-        for c in schema.columns:
+        for c in schema.columns:  # a column left out of the list is NULL
             if c.name not in data:
-                data[c.name] = np.zeros(
-                    (n,), dtype=object if c.type.is_string else c.type.np_dtype
-                )
+                data[c.name] = _null_column(c.type, n)
         stage.stage_insert(data)
         return n
