@@ -44,6 +44,22 @@ JSON paths over 1,000,000 payloads made from a seed in a `nested` memory
 catalog, rising price runs per customer, a TopN over unnested words), each
 against a python / numpy reference, then every statement of the port's
 nested-value test files at SF 0.01 on the card and on `Engine(device="cpu")`.
+The `spill` phase runs Q1, Q3, Q5, Q18 and a join narrowed by dynamic
+filtering out of core (each budget set from the statement's own byte
+estimate for 8 parts: fragments run slice by slice, exchanges parked on disk
+as wire pages), against the same engine in memory (rows, warm_ms, peak
+device bytes from a cold scan cache: the out-of-core peak of Q1 and Q18 must
+be the lower) and Q1 / Q18 against numpy; then a reactive re-run after a
+real device out-of-memory error under a memory cap (the run fails if the
+re-run runs out too; only where the cap forces no error is one raised
+through the executor), and the statements at
+SF 0.01 card vs `Engine(device="cpu")`, both out of core.  The `fastpath`
+phase prepares four templates (Q6-, Q1-, Q3- and TopN-shaped) and EXECUTEs
+20 seeded bindings of each, every one against `Engine.query` with the
+literals; a binding that hits the plan cache must add no NVRTC compile and
+no learned-capacity entry, and the Q6 and Q1 shapes must run the fused
+pipeline (kernel 2) with their bound values; then one batch window of 8 threads and the
+fast-path test file's templates at SF 0.01, card vs CPU.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -58,6 +74,7 @@ and probe take N/8), `--ptxas`
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -1343,7 +1360,10 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
         for variant, flag, name, sql, _, _ in lines:
             engine.execute(f"set session data_plane_kernels = {flag}")
             current[0] = f"{name}/{variant}"
-            engine.query(sql)
+            if sql.lstrip().lower().startswith("execute "):
+                engine.execute(sql)  # a prepared statement's binding (fast path)
+            else:
+                engine.query(sql)
     finally:
         sr.fused_segment_reduce, fused.run = real["reduce"], real["run"]
         hashagg.build_hash_table, hashjoin.probe_hash_table = real["build"], real["probe"]
@@ -1448,16 +1468,28 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
     """For each statement the main path ran: the same statement on the CPU
     engine (held against the numpy reference where there is one, and the
     card's rows against it), `runs` warm runs, `runs` runs layer by layer, a
-    profiled set of `runs`; one JSON line each."""
+    profiled set of `runs`; one JSON line each.  The CPU engine runs each
+    distinct statement once, in the first variant that has it: a later
+    variant (the card with kernels off) is held against those rows — but
+    AGG's, whose approx_distinct the card must match exactly, in each
+    setting."""
+    cpu_seen: dict = {}  # statement -> (rows, the variant whose CPU run made them)
     for variant, flag, name, sql, cold_ms, events, retries in lines:
-        cpu_engine.execute(f"set session data_plane_kernels = {flag}")
         engine.execute(f"set session data_plane_kernels = {flag}")
-        t0 = time.perf_counter()
-        cpu_rows = cpu_engine.query(sql)
-        cpu_ms = (time.perf_counter() - t0) * 1e3
+        cpu_ms = None
+        key = (sql, flag) if name == "agg" else sql
+        if key in cpu_seen:
+            cpu_rows, cpu_variant = cpu_seen[key]
+        else:
+            cpu_engine.execute(f"set session data_plane_kernels = {flag}")
+            t0 = time.perf_counter()
+            cpu_rows = cpu_engine.query(sql)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            cpu_variant = variant
+            cpu_seen[key] = (cpu_rows, variant)
         rows = engine.query(sql)
         what = f"{name}/{variant}"
-        if name in want:
+        if name in want and cpu_ms is not None:
             rows_agree(cpu_rows, want[name], name, f"{what} on cpu vs numpy reference",
                        ordered, agg_tols)
         rows_agree(rows, cpu_rows, name, f"{what} cuda vs cpu engine", ordered, agg_tols,
@@ -1466,6 +1498,7 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
             "phase": phase, "query": name, "variant": variant,
             "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
             "cold_ms": cold_ms, **statement_timing(engine, sql, runs), "cpu_engine_ms": cpu_ms,
+            "cpu_rows_of": cpu_variant,
             "first_run_retries": retries,
             "launches": launches[what],
             "dispatch": [[op, impl] for op, impl, _ in events],
@@ -2543,6 +2576,487 @@ def nested_phase(engine, scale):
     return counts, time.perf_counter() - t_phase
 
 
+# ------------------------------------------------------------------ spill
+
+SPILL_QUERIES = ("q01", "q03", "q05", "q18")
+SPILL_PARTS = 8  # each statement's budget is set from its estimate for this many
+SPILL_PEAK_CHECKED = ("q01", "q18")  # out of core must peak lower than in memory
+SPILL_KERNELS = ("segment_reduce", "hash_build", "hash_probe")  # the path's kernels
+NARROW_PART_KEYS = 20_000  # at scale 1: a tenth of part, so about a tenth of lineitem joins
+SPILL_CROSS_SCALE = 0.01
+SPILL_CROSS_BUDGET = 3_000_000  # bytes: several slices at SF 0.01
+NARROW_CROSS = (200, 400_000)  # p_partkey bound and budget of the join at SF 0.01
+
+
+def narrow_join(bound: int) -> str:
+    """A join whose build side (part) is narrow: dynamic filtering drops the
+    lineitem rows outside [min, max] of its keys before upload."""
+    return ("select count(*), sum(l_extendedprice) from lineitem, part "
+            f"where l_partkey = p_partkey and p_partkey <= {bound}")
+
+
+def peak_run(engine, sql) -> tuple:
+    """(rows, peak device bytes above the pre-query baseline, ms) of one run
+    from a cold scan cache: the engine's cached table columns are dropped
+    first, so the uploads count in memory and out of core alike."""
+    engine.executor.drop_scans()
+    gc.collect()  # what earlier runs left must not be freed inside this one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = engine.query(sql)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return rows, torch.cuda.max_memory_allocated() - base, ms
+
+
+def warm_median(engine, sql, runs: int = 3) -> float:
+    laps = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.query(sql)
+        torch.cuda.synchronize()
+        laps.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(laps)
+
+
+def cuda_allocations() -> int:
+    """How many device allocations the caching allocator has made so far."""
+    return int(torch.cuda.memory_stats().get("allocation.all.allocated", 0))
+
+
+def tpch_engine(device, scale):
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(device=device)
+    eng.register_catalog("tpch", TpchConnector(scale))
+    return eng
+
+
+def reactive_oom(scale, want_rows) -> dict:
+    """The reactive re-run after a device out-of-memory error.  Real where it
+    can be made so: Q6's in-memory peak and its 2-part out-of-core peak are
+    measured on a fresh engine, the process is capped between the two
+    (torch.cuda.set_per_process_memory_fraction) and a second fresh engine
+    runs Q6 under the default budget: the estimate admits it, the in-memory
+    run raises torch.cuda.OutOfMemoryError, the engine re-runs it out of
+    core.  The run fails when that re-run runs out of memory too.  Only
+    where the peaks leave no room for a cap, or the capped run raised no
+    out-of-memory error at all, is one OutOfMemoryError raised through the
+    executor as the tests do ("simulated": true); `case` says which."""
+    from trino_tpu_torch.exec.spill import estimate_plan_bytes
+
+    probe = tpch_engine("cuda", scale)
+    est = estimate_plan_bytes(probe.plan(Q06), probe.catalogs)
+    probe.session.set("query_max_memory_bytes", "-1")
+    _, peak_mem, _ = peak_run(probe, Q06)
+    probe.session.set("query_max_memory_bytes", str(est // 2 + 1))
+    _, peak_two, _ = peak_run(probe, Q06)
+    parts_two = probe.last_spill.parts
+    del probe
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_reserved()
+    limit = base + (peak_mem + peak_two) // 2
+    out = {"statement": "q06", "peak_in_memory_bytes": peak_mem,
+           "peak_two_parts_bytes": peak_two, "cap_bytes": limit - base, "simulated": True,
+           "case": "simulated: the two peaks leave no room for a cap between them"}
+    if parts_two == 2 and peak_two < 0.8 * peak_mem:
+        eng, rerun_oom = None, None
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        try:
+            eng = tpch_engine("cuda", scale)
+            rows = eng.query(Q06)
+        except torch.cuda.OutOfMemoryError as err:
+            rerun_oom = str(err)[:200]
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        if rerun_oom is not None:
+            fail(f"spill reactive: the out-of-core re-run under the cap ran out of "
+                 f"device memory too: {rerun_oom}")
+        ooc = eng.last_spill
+        if ooc is not None:
+            rows_match(rows, want_rows, "spill reactive (real OOM) vs in memory")
+            out.update(simulated=False, case="real: out of memory under the cap, re-run "
+                       "out of core", parts=ooc.parts, spill_files=ooc.spill_files,
+                       spilled_bytes=ooc.spilled_bytes)
+        else:
+            out["case"] = "simulated: the capped run raised no out-of-memory error"
+        del eng
+        torch.cuda.empty_cache()
+    if out["simulated"]:
+        eng = tpch_engine("cuda", scale)
+        real = eng.executor.execute
+        calls = [0]
+
+        def oom_once(plan, *a, **kw):
+            if calls[0] == 0:
+                calls[0] += 1
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory (raised once by chip_smoke)")
+            return real(plan, *a, **kw)
+
+        eng.executor.execute = oom_once
+        rows = eng.query(Q06)
+        ooc = eng.last_spill
+        if calls[0] != 1 or ooc is None:
+            fail("spill reactive (simulated): the engine did not re-run out of core")
+        rows_match(rows, want_rows, "spill reactive (simulated) vs in memory")
+        out.update(parts=ooc.parts, spill_files=ooc.spill_files, spilled_bytes=ooc.spilled_bytes)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def spill_cross_check() -> dict:
+    """The four statements and the narrow join at SF 0.01, out of core on a
+    card engine and on Engine(device="cpu"): rows, parts, spill files and
+    pruned rows equal; the CPU engine's run moves no CUDA allocation."""
+    queries, ordered = tpch_queries()
+    card, host = tpch_engine("cuda", SPILL_CROSS_SCALE), tpch_engine("cpu", SPILL_CROSS_SCALE)
+    stmts = {n: (Q01 if n == "q01" else queries[n], SPILL_CROSS_BUDGET) for n in SPILL_QUERIES}
+    stmts["narrow_join"] = (narrow_join(NARROW_CROSS[0]), NARROW_CROSS[1])
+    out = {}
+    for name, (sql, budget) in stmts.items():
+        for eng in (card, host):
+            eng.session.set("query_max_memory_bytes", str(budget))
+        got = card.query(sql)
+        torch.cuda.synchronize()
+        before = cuda_allocations()
+        exp = host.query(sql)
+        if cuda_allocations() != before:
+            fail(f"spill SF 0.01 {name}: the CPU engine's out-of-core run allocated on the card")
+        rows_agree(got, exp, name, f"spill SF 0.01 {name}: cuda vs cpu engine", ordered)
+        a, b = card.last_spill, host.last_spill
+        facts = lambda s: (s.parts, s.spill_files, s.rows_pruned)
+        if a is None or b is None or facts(a) != facts(b):
+            fail(f"spill SF 0.01 {name}: cuda {a and facts(a)} vs cpu {b and facts(b)}")
+        out[name] = {"parts": a.parts, "spill_files": a.spill_files, "rows_pruned": a.rows_pruned}
+    return out
+
+
+def spill_phase(engine, scale):
+    """Out-of-core execution on the card at TPC-H `scale`: Q1, Q3, Q5, Q18
+    and a narrow join, each with a budget set from its own byte estimate for
+    8 parts, against the same engine in memory (rows, warm_ms, peak device
+    bytes from a cold scan cache) and Q1 / Q18 against numpy; then the
+    reactive re-run after an out-of-memory error, and the statements at SF
+    0.01 card vs CPU.  Returns (the path's launch counts, phase seconds)."""
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.exec.spill import estimate_plan_bytes
+
+    t_phase = time.perf_counter()
+    queries, ordered = tpch_queries()
+    stmts = {n: (Q01 if n == "q01" else queries[n]) for n in SPILL_QUERIES}
+    stmts["narrow_join"] = narrow_join(max(1, int(NARROW_PART_KEYS * scale)))
+    li, orders, customer = (tpch_data(t, scale) for t in ("lineitem", "orders", "customer"))
+    want = {"q01": q1_reference(li), "q18": q18_reference(li, orders, customer)}
+    del li, orders, customer
+    engine.execute("set session data_plane_kernels = true")
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    peaks, pruned, in_memory = {}, {}, {}
+    for name, sql in stmts.items():
+        est = estimate_plan_bytes(engine.plan(sql), engine.catalogs)
+        budget = est // 6  # ceil(est / budget) is 6 or 7: 8 parts
+        engine.session.set("query_max_memory_bytes", "-1")
+        rows_mem, peak_mem, cold_mem = peak_run(engine, sql)
+        warm_mem = warm_median(engine, sql)
+        in_memory[name] = rows_mem
+        engine.session.set("query_max_memory_bytes", str(budget))
+        before = kernel_counts()
+        rows, peak, cold = peak_run(engine, sql)
+        after = kernel_counts()
+        ooc = engine.last_spill
+        warm = warm_median(engine, sql)
+        engine.session.set("query_max_memory_bytes", "0")
+        launches = {k: after[k] - before[k] for k in KERNEL_NAMES}
+        for k in KERNEL_NAMES:
+            counts[k] += launches[k]
+        if ooc is None or ooc.parts != SPILL_PARTS or ooc.spill_files < 1:
+            fail(f"spill {name}: expected {SPILL_PARTS} parts with spill files, got "
+                 f"{ooc and (ooc.parts, ooc.spill_files)}")
+        rows_agree(rows, rows_mem, name, f"spill {name}: out of core vs in memory", ordered)
+        if name in want:
+            rows_agree(rows, want[name], name, f"spill {name}: out of core vs numpy", ordered)
+        peaks[name] = (peak, peak_mem)
+        pruned[name] = ooc.rows_pruned
+        emit({"phase": "spill", "query": name, "scale": scale, "rows": len(rows),
+              "correct": True, "estimate_bytes": est, "budget_bytes": budget,
+              "parts": ooc.parts, "fragments": ooc.fragments, "spill_files": ooc.spill_files,
+              "spilled_bytes": ooc.spilled_bytes, "rows_pruned": ooc.rows_pruned,
+              "slices_that_retried": len(ooc.slice_retries),
+              "warm_ms": warm, "warm_ms_in_memory": warm_mem,
+              "cold_ms": cold, "cold_ms_in_memory": cold_mem,
+              "peak_bytes": peak, "peak_bytes_in_memory": peak_mem, "launches": launches})
+    for name in SPILL_PEAK_CHECKED:
+        if peaks[name][0] >= peaks[name][1]:
+            fail(f"spill {name}: out-of-core peak {peaks[name][0]} is not below the "
+                 f"in-memory peak {peaks[name][1]}")
+    if pruned["narrow_join"] < 1:
+        fail(f"spill narrow_join: dynamic filtering pruned no row ({pruned})")
+    for k in SPILL_KERNELS:
+        if counts[k] < 1:
+            fail(f"spill path never launched {k}: {counts}")
+    # the kernels' calls of one out-of-core statement against their plain
+    # versions on the engine's own tensors (after the counts were read)
+    engine.session.set("query_max_memory_bytes", str(
+        estimate_plan_bytes(engine.plan(stmts["q03"]), engine.catalogs) // 6))
+    try:
+        calls = check_main_path_calls(
+            engine, [("spill", "true", "q03", stmts["q03"], 0, ())], require_all=False)
+    finally:
+        engine.session.set("query_max_memory_bytes", "0")
+    missing = set(SPILL_KERNELS) - {c["kernel"] for c in calls}
+    if missing:
+        fail(f"spill kernel_calls reached no call of {sorted(missing)}")
+    emit({"phase": "spill", "step": "kernel_calls", "calls": calls})
+    engine.executor.drop_scans()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    emit({"phase": "spill", "step": "reactive", **reactive_oom(scale, in_memory_q06(engine)),
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    compared = spill_cross_check()
+    emit({"phase": "spill", "step": "cross_scale", "scale": SPILL_CROSS_SCALE, "correct": True,
+          "statements": compared, "seconds": round(time.perf_counter() - t0, 3)})
+    torch.cuda.empty_cache()
+    return counts, time.perf_counter() - t_phase
+
+
+def in_memory_q06(engine) -> list:
+    engine.session.set("query_max_memory_bytes", "-1")
+    try:
+        return engine.query(Q06)
+    finally:
+        engine.session.set("query_max_memory_bytes", "0")
+        engine.executor.drop_scans()
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- fast path
+
+FASTPATH = {
+    "q6_shape": (
+        "select sum(l_extendedprice * l_discount) as revenue from lineitem "
+        "where l_shipdate >= ? and l_shipdate < ? and l_discount between ? and ? "
+        "and l_quantity < ?"
+    ),
+    "q1_shape": (
+        "select l_returnflag, l_linestatus, sum(l_quantity), sum(l_extendedprice), "
+        "sum(l_extendedprice * (1 - l_discount)), avg(l_quantity), count(*) "
+        "from lineitem where l_shipdate <= ? group by l_returnflag, l_linestatus "
+        "order by l_returnflag, l_linestatus"
+    ),
+    "q3_shape": (
+        "select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue, "
+        "o_orderdate, o_shippriority from customer, orders, lineitem "
+        "where c_mktsegment = ? and c_custkey = o_custkey and l_orderkey = o_orderkey "
+        "and o_orderdate < ? and l_shipdate > ? "
+        "group by l_orderkey, o_orderdate, o_shippriority "
+        "order by revenue desc, o_orderdate, l_orderkey limit 10"
+    ),
+    "topn_shape": (
+        "select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+        "where l_shipdate > ? order by l_extendedprice desc, l_orderkey, l_linenumber limit 10"
+    ),
+}
+FASTPATH_BINDINGS = 20
+FASTPATH_SEED = 23
+FASTPATH_KERNELS = KERNEL_NAMES
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+BATCH_THREADS = 8
+BATCH_WINDOW_MS = 25
+
+
+def fastpath_binding(name: str, rng) -> list:
+    """One binding of a FASTPATH template as SQL literals."""
+    day = lambda base, span: f"date '{_iso(base + int(rng.integers(0, span)))}'"
+    if name == "q6_shape":
+        y, d = int(rng.integers(1993, 1998)), int(rng.integers(2, 9))
+        return [f"date '{y}-01-01'", f"date '{y + 1}-01-01'", f"{(d - 1) / 100:.2f}",
+                f"{(d + 1) / 100:.2f}", str(int(rng.integers(10, 50)))]
+    if name == "q1_shape":
+        return [day(_days(1998, 12, 1) - 120, 61)]
+    if name == "q3_shape":
+        d = day(_days(1995, 3, 1), 31)
+        return [f"'{SEGMENTS[int(rng.integers(0, len(SEGMENTS)))]}'", d, d]
+    return [day(_days(1992, 1, 1), 2500)]
+
+
+def with_literals(sql: str, args) -> str:
+    for a in args:
+        sql = sql.replace("?", a, 1)
+    return sql
+
+
+def fastpath_phase(engine, scale):
+    """The prepared-statement fast path on the card at TPC-H `scale`: four
+    templates (Q6-, Q1-, Q3- and TopN-shaped), 20 seeded bindings each through
+    EXECUTE, each against Engine.query with the literals on the same engine;
+    a binding that hit the plan cache must add no NVRTC compile and no
+    learned-capacity entry.  Then a batch window of 8 threads, and the
+    fast-path test file's templates at SF 0.01, card vs CPU.  Returns (the
+    path's launch counts, phase seconds)."""
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.ops.cuda import fused_codegen
+    from trino_tpu_torch.runtime.fastpath import EXECUTE_BATCH, PLAN_CACHE_EVENTS
+
+    t_phase = time.perf_counter()
+    engine.execute("set session data_plane_kernels = true")
+    fp = engine.fastpath()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    rng = np.random.default_rng(FASTPATH_SEED)
+    compared = 0
+    for name, sql in FASTPATH.items():
+        engine.execute(f"prepare {name} from {sql}")
+        ex_ms, q_cold_ms, q_warm_ms, plan_ms, caches = [], [], [], [], []
+        added = [0, 0]  # NVRTC compiles and learned-capacity entries the EXECUTEs added
+        reruns = 0  # capacity re-runs of the EXECUTEs
+        before_all = (len(fused_codegen._COMPILES), len(engine.executor._learned_caps))
+        h0, m0 = PLAN_CACHE_EVENTS.value("hit"), PLAN_CACHE_EVENTS.value("miss")
+        for i in range(FASTPATH_BINDINGS):
+            args = fastpath_binding(name, rng)
+            c0, k0 = len(fused_codegen._COMPILES), len(engine.executor._learned_caps)
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = engine.execute(f"execute {name} using {', '.join(args)}")
+            torch.cuda.synchronize()
+            ex_ms.append((time.perf_counter() - t0) * 1e3)
+            reruns += len(engine.executor.last_retries)
+            after = kernel_counts()
+            for k in KERNEL_NAMES:
+                counts[k] += after[k] - before[k]
+            caches.append(fp.last_info.cache)
+            c1, k1 = len(fused_codegen._COMPILES), len(engine.executor._learned_caps)
+            added[0] += c1 - c0
+            added[1] += k1 - k0
+            if fp.last_info.cache == "hit" and (c1 > c0 or k1 > k0):
+                fail(f"fastpath {name} binding {i}: a plan-cache hit added "
+                     f"{c1 - c0} NVRTC compiles and {k1 - k0} learned-capacity entries")
+            literal = with_literals(sql, args)
+            laps = []
+            for _ in range(2):  # the literal statement: a new plan, then warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = engine.query(literal)
+                torch.cuda.synchronize()
+                laps.append((time.perf_counter() - t0) * 1e3)
+            q_cold_ms.append(laps[0])
+            q_warm_ms.append(laps[1])
+            t0 = time.perf_counter()
+            engine.plan(literal)
+            plan_ms.append((time.perf_counter() - t0) * 1e3)
+            rows_match(got, want, f"fastpath {name} binding {i} ({args}) vs Engine.query")
+            compared += 1
+        emit({"phase": "fastpath", "template": name, "scale": scale,
+              "bindings": FASTPATH_BINDINGS, "correct": True,
+              "bound": fp.last_info.bound, "baked": fp.last_info.baked,
+              "execute_warm_ms": statistics.median(ex_ms[1:]), "execute_first_ms": ex_ms[0],
+              "query_warm_ms": statistics.median(q_warm_ms),
+              "query_cold_ms": statistics.median(q_cold_ms),
+              "query_plan_ms": statistics.median(plan_ms),
+              "plan_cache_hits": int(PLAN_CACHE_EVENTS.value("hit") - h0),
+              "plan_cache_misses": int(PLAN_CACHE_EVENTS.value("miss") - m0),
+              # added by the EXECUTEs (all on their plan-cache misses; a hit adds none)
+              "nvrtc_compiles_added": added[0], "learned_cap_entries_added": added[1],
+              "capacity_reruns": reruns,
+              # the process's totals before and after the template's bindings
+              # (the literal statements' plans add entries of their own)
+              "nvrtc_compiles_before_after": [before_all[0], len(fused_codegen._COMPILES)],
+              "learned_cap_entries_before_after": [before_all[1],
+                                                   len(engine.executor._learned_caps)],
+              "dispatch": sorted({f"{op}/{impl}" for k, e in fp._cache.items() if k[0] == sql
+                                  for op, impl, _ in kernels.events_for(e.plan)})})
+    for k in FASTPATH_KERNELS:
+        if counts[k] < 1:
+            fail(f"fastpath never launched {k}: {counts}")
+
+    # one batch window: 8 threads EXECUTE the Q6 shape together
+    import threading
+
+    args_list = [fastpath_binding("q6_shape", rng) for _ in range(BATCH_THREADS)]
+    wants = [engine.query(with_literals(FASTPATH["q6_shape"], a)) for a in args_list]
+    outcomes0 = {o: EXECUTE_BATCH.value(o) for o in ("batched", "single", "fallback")}
+    results, errors = [None] * BATCH_THREADS, []
+    engine.execute(f"set session execute_batch_window_ms = {BATCH_WINDOW_MS}")
+
+    def run(i):
+        try:
+            results[i] = engine.execute(f"execute q6_shape using {', '.join(args_list[i])}")
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(BATCH_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    engine.execute("set session execute_batch_window_ms = 0")
+    after = kernel_counts()
+    for k in KERNEL_NAMES:
+        counts[k] += after[k] - before[k]
+    if errors:
+        fail(f"fastpath batch window: {errors}")
+    for i, (got, want) in enumerate(zip(results, wants)):
+        rows_match(got, want, f"fastpath batch window query {i}")
+    outcomes = {o: int(EXECUTE_BATCH.value(o) - outcomes0[o]) for o in outcomes0}
+    emit({"phase": "fastpath", "step": "batch_window", "threads": BATCH_THREADS,
+          "window_ms": BATCH_WINDOW_MS, "wall_ms": window_ms, "correct": True,
+          "execute_batch": outcomes})
+
+    # the kernels' calls of one binding against their plain versions
+    calls = check_main_path_calls(
+        engine, [("fastpath", "true", "q3_shape",
+                  f"execute q3_shape using 'BUILDING', date '1995-03-15', date '1995-03-15'",
+                  0, ()),
+                 ("fastpath", "true", "topn_shape",
+                  "execute topn_shape using date '1995-01-01'", 0, ()),
+                 ("fastpath", "true", "q6_shape",
+                  "execute q6_shape using date '1994-01-01', date '1995-01-01', 0.05, 0.07, 24",
+                  0, ())],
+        require_all=False)
+    missing = set(FASTPATH_KERNELS) - {c["kernel"] for c in calls}
+    if missing:
+        fail(f"fastpath kernel_calls reached no call of {sorted(missing)}")
+    emit({"phase": "fastpath", "step": "kernel_calls", "calls": calls})
+
+    t0 = time.perf_counter()
+    cross = fastpath_cross_check(rng)
+    emit({"phase": "fastpath", "step": "cross_scale", "scale": 0.01, "correct": True,
+          "statements_compared": cross, "seconds": round(time.perf_counter() - t0, 3)})
+    emit({"phase": "fastpath", "step": "summary", "bindings_compared": compared})
+    torch.cuda.empty_cache()
+    return counts, time.perf_counter() - t_phase
+
+
+def fastpath_cross_check(rng) -> int:
+    """The fast-path test file's templates and five bindings of each FASTPATH
+    template at SF 0.01 through EXECUTE on a card engine and on
+    Engine(device="cpu"), rows compared."""
+    mod = nested_test_module("test_torch_fastpath")
+    card, host = mod.port_engine("cuda"), mod.port_engine("cpu")
+    stmts = [(n, sql, args) for n, (sql, args) in mod.TEMPLATES.items()]
+    for name, sql in FASTPATH.items():
+        stmts += [(name, sql, fastpath_binding(name, rng)) for _ in range(5)]
+    for name, sql, args in stmts:
+        for eng in (card, host):
+            eng.execute(f"prepare {name} from {sql}")
+        stmt = f"execute {name} using {', '.join(args)}"
+        rows_match(card.execute(stmt), host.execute(stmt),
+                   f"fastpath SF 0.01 {name} {args}: cuda vs cpu engine")
+    return len(stmts)
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -2661,10 +3175,13 @@ def main(argv=None) -> int:
     tpcds_s = time.perf_counter() - t_tpcds
     statements_counts, statements_s = statements_phase(engine, args.scale)
     nested_counts, nested_s = nested_phase(engine, args.scale)
+    spill_counts, spill_s = spill_phase(engine, args.scale)
+    fastpath_counts, fastpath_s = fastpath_phase(engine, args.scale)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
-                   "nested": nested_counts[r["name"]]}
+                   "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
+                   "fastpath": fastpath_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -2673,7 +3190,8 @@ def main(argv=None) -> int:
     emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
     emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
-          "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1)})
+          "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
+          "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -247,8 +247,9 @@ def test_civil_date_helpers_round_trip():
 
 def test_unported_operators_name_their_roadmap_item(both_sides):
     # JSON ran behind an A.8b refusal until the nested-value family was
-    # ported: it now equals the reference; what is left unported is the
-    # prepared-statement fast path's parameter (A.9b)
+    # ported: it now equals the reference; the prepared-statement fast path's
+    # parameter ran behind an A.9b refusal until that path was ported: bound
+    # in a context it equals the reference's, outside one it still raises
     from trino_tpu.data import types as RT
     from trino_tpu.plan import ir as ref_ir
     from trino_tpu_torch.data import types as PT
@@ -262,8 +263,20 @@ def test_unported_operators_name_their_roadmap_item(both_sides):
         ref_ir.Call("json_size", (ref_ir.Const(doc, RT.VARCHAR),), RT.BIGINT), rcols, n)
     _assert_same(got, want, "json_size")
     assert int(got.data[0]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
+    with pytest.raises(NotImplementedError, match="outside a binding context"):
         port_expr.eval_expr(port_ir.Param(0, PT.BIGINT), pcols, n)
+    def pred(ir, T):  # column 0 (decimal(12,2)) < $1, the bound unscaled lane
+        d = T.DecimalType(12, 2)
+        return ir.Call("lt", (ir.FieldRef(0, d), ir.Param(1, d)), T.BOOLEAN)
+
+    values = (np.int64(0), np.int64(int(np.median(np.asarray(pcols[0].data)))))
+    with port_expr.param_context(values):
+        got = port_expr.eval_expr(pred(port_ir, PT), pcols, n)
+        assert port_expr.eval_expr(port_ir.Param(1, PT.BIGINT), pcols, n).data.shape == (n,)
+    with ref_expr.param_context(values):
+        want = ref_expr.eval_expr(pred(ref_ir, RT), rcols, n)
+    _assert_same(got, want, "param")
+    assert 0 < int(got.data.sum()) < n
 
 
 # ------------------------------- IN, LIKE, substring, CASE and coalesce

@@ -1,6 +1,7 @@
 """The port's copied front end (lexer, parser, planner, optimizer, serde)
 plans every TPC-H query exactly as the reference does."""
 
+import numpy as np
 import pytest
 
 from tests.tpch_queries import QUERIES
@@ -58,12 +59,16 @@ def test_unported_statements_and_patterns_name_their_roadmap_item(planners):
     from trino_tpu_torch.ops.expr import eval_expr
     from trino_tpu_torch.plan.ir import Param
 
-    # statements run since A.9a (tests/test_torch_statements.py); what is
-    # left of the storage plane names its item: the prepared-statement fast
-    # path's runtime parameters (EXECUTE substitutes values into the
-    # statement instead) and bucketed memory tables
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        eval_expr(Param(0, BIGINT), [], 1, torch.device("cpu"))
+    # statements run since A.9a (tests/test_torch_statements.py), the
+    # prepared-statement fast path's runtime parameters since A.9b (they
+    # named that item until then: a Param evaluates inside a binding
+    # context); what is left of the storage plane names its item: bucketed
+    # memory tables
+    from trino_tpu_torch.ops.expr import param_context
+
+    with param_context((np.int64(7),)):
+        v = eval_expr(Param(0, BIGINT), [], 3, torch.device("cpu"))
+    assert v.data.tolist() == [7, 7, 7] and v.valid is None
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         MemoryConnector().create_table("t", [ColumnSchema("a", BIGINT)], bucketed_by=["a"])
     # MATCH_RECOGNIZE named ROADMAP A.8b until its operator was ported: its

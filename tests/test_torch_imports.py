@@ -48,6 +48,18 @@ NESTED_MODULES = (
 )
 
 
+# the out-of-core path and the prepared-statement fast path, and the
+# modules they changed: each must be walked too
+OUT_OF_CORE_MODULES = (
+    "trino_tpu_torch.plan.fragmenter", "trino_tpu_torch.plan.distribute",
+    "trino_tpu_torch.native", "trino_tpu_torch.runtime.wire",
+    "trino_tpu_torch.runtime.disk", "trino_tpu_torch.runtime.memory",
+    "trino_tpu_torch.exec.dynfilter", "trino_tpu_torch.exec.spill",
+    "trino_tpu_torch.runtime.resultcache", "trino_tpu_torch.runtime.fastpath",
+    "trino_tpu_torch.ops.kernels", "trino_tpu_torch.exec.compiler",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -73,6 +85,7 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     walked = set(lines["NAMES"].split(","))
     assert set(STATEMENT_MODULES) <= walked, sorted(set(STATEMENT_MODULES) - walked)
     assert set(NESTED_MODULES) <= walked, sorted(set(NESTED_MODULES) - walked)
+    assert set(OUT_OF_CORE_MODULES) <= walked, sorted(set(OUT_OF_CORE_MODULES) - walked)
 
 
 def test_no_refusal_names_the_nested_value_family():
@@ -91,6 +104,39 @@ def test_no_refusal_names_the_nested_value_family():
 
     assert "Unnest" not in compiler._ROADMAP_ITEM
     assert "MatchRecognize" not in compiler._ROADMAP_ITEM
+
+
+def test_no_refusal_names_the_out_of_core_slice():
+    """Nothing in the package raises naming ROADMAP A.9b any more: RemoteSource
+    leaves run, ir.Param evaluates, EXECUTE takes the fast path.  Only the
+    exchange across cards (A.10) is refused by the executor."""
+    left = []
+    for base, _dirs, files in os.walk(_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(base, f)
+                for i, line in enumerate(open(path), 1):
+                    if "A.9b" in line:
+                        left.append(f"{os.path.relpath(path, _ROOT)}:{i}")
+    assert left == []
+    from trino_tpu_torch.exec import compiler
+
+    assert compiler._ROADMAP_ITEM == {"Exchange": "A.10"}
+
+
+def test_serde_is_built_at_first_use_not_at_import():
+    """Importing the wire and spill modules builds nothing: the serde
+    library is compiled when a page first crosses the wire."""
+    code = (
+        "import trino_tpu_torch.native as n, trino_tpu_torch.exec.spill, "
+        "trino_tpu_torch.runtime.wire; print(n._SERDE is None)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "True"
 
 
 @pytest.mark.parametrize(

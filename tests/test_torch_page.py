@@ -137,3 +137,26 @@ def test_dictionary_interning_and_sorted_rank():
     unsorted = Dictionary(np.asarray(["b", "c", "a"], dtype=object))
     assert list(unsorted.sorted_rank()) == [1, 2, 0]
     assert unsorted.code_of("c") == 1 and unsorted.code_of("zz") == -1
+
+
+@pytest.mark.parametrize("distinct", [1, 3, 40, 5000, 200_000])
+def test_dictionary_encode_equals_the_reference(distinct):
+    """The port encodes a VARCHAR column by hashing its rows into their
+    distinct values and sorting only those, from one value to mostly
+    distinct ones (the last case): codes and dictionary must be what the
+    reference's `np.unique` gives."""
+    from trino_tpu.data.page import Dictionary as RefDictionary
+    from trino_tpu_torch.data.page import Dictionary
+
+    rng = np.random.default_rng(distinct)
+    words = np.asarray([f"w{i:05d}" for i in rng.permutation(distinct)] + ["", "Z", "a"],
+                       dtype=object)
+    values = words[rng.integers(0, len(words), 20_000)]
+    codes, d = Dictionary.encode(values)
+    ref_codes, ref_d = RefDictionary.encode(values)
+    assert codes.dtype == np.int32
+    np.testing.assert_array_equal(codes, np.asarray(ref_codes))
+    assert list(d.values) == list(ref_d.values)
+    assert list(d.values[codes]) == list(values)
+    empty_codes, empty = Dictionary.encode(np.asarray([], dtype=object))
+    assert len(empty_codes) == 0 and len(empty) == 0

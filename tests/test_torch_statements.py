@@ -495,7 +495,8 @@ def test_explain_json_and_execute(engine):
     engine.execute("prepare p from select k from x where k > ? order by k")
     lines = [r[0] for r in engine.execute("explain analyze execute p using 1")]
     assert "-- output rows: 2," in "\n".join(lines)
-    assert lines[-1] == "-- fastpath: off (legacy substitute-and-replan path)"
+    assert lines[-1] == ("-- fastpath: plan_cache=miss bound=1 baked=0 "
+                         "batch_window_ms=0 executor=local")
     lines = [r[0] for r in engine.execute("explain delete from x where k = 1")]
     assert lines == ["Write[Delete -> x]"]
     assert engine.execute("select count(*) from x") == [(3,)]  # not executed

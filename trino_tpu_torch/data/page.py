@@ -149,9 +149,19 @@ class Dictionary:
 
     @staticmethod
     def encode(values: Sequence[str]) -> tuple[np.ndarray, "Dictionary"]:
+        """(codes, dictionary) with the dictionary sorted: what
+        `np.unique(values, return_inverse=True)` gives.  The distinct values
+        are found by hashing and only they are sorted (python's sort); each
+        row's code is a lookup, where numpy would sort every row of the
+        object array with python comparisons."""
         arr = np.asarray(values, dtype=object)
-        uniq, codes = np.unique(arr, return_inverse=True)
-        return codes.astype(np.int32), Dictionary.intern(uniq)
+        rows = arr.tolist()
+        distinct = sorted(dict.fromkeys(rows))
+        code_of = {v: i for i, v in enumerate(distinct)}
+        codes = np.fromiter(map(code_of.__getitem__, rows), dtype=np.int32, count=len(rows))
+        uniq = np.empty(len(distinct), dtype=object)
+        uniq[:] = distinct
+        return codes, Dictionary.intern(uniq)
 
     @staticmethod
     def encode_arrays(values: Sequence) -> tuple[np.ndarray, "Dictionary"]:

@@ -18,9 +18,19 @@ packed transfer.
 The port handles TableScan, Values, Filter, Project, Compact, Aggregate,
 Distinct, Join (every kind, cross joins against a single row included),
 Concat (UNION ALL, and the union under INTERSECT / EXCEPT / UNION), Sort,
-TopN, Limit, EnforceSingleRow, Window, Unnest and MatchRecognize; the
-distributed nodes (Exchange, RemoteSource) raise NotImplementedError naming
-their ROADMAP item.
+TopN, Limit, EnforceSingleRow, Window, Unnest, MatchRecognize and
+RemoteSource (a plan fragment's input, handed in as a page by the
+out-of-core executor, exec/spill.py); Exchange raises NotImplementedError
+naming its ROADMAP item (the exchange across cards, A.10).
+
+Scans can be sliced and narrowed: `split = (part, num_parts)` scans one
+slice of every table (padded to ceil(total / num_parts) rows with
+`pad_splits`, so all slices share one set of learned capacities), and
+`scan_filters` (exec/dynfilter.py) drop rows outside a join's build-side key
+domain on the host, before they are uploaded.  Prepared-statement parameters
+(`execute(..., params=...)`) are bound for the run through
+ops/expr.param_context: every binding of a plan shares its learned
+capacities.
 
 Two more facts ride the packed `required` transfer: EnforceSingleRow's live
 count (key -(nid+1); the host raises past one row) and each hash join's
@@ -42,7 +52,8 @@ from .. import resolve_device
 from ..connectors.spi import CatalogManager
 from ..data.page import Column, Dictionary, Page
 from ..ops.expr import (
-    ColumnVal, clear_run_memos, column_val, eval_expr, eval_predicate, translate_codes,
+    ColumnVal, bind_params, clear_run_memos, column_val, eval_expr, eval_predicate,
+    param_context, translate_codes,
 )
 from ..ops.relops import (
     AggSpec, SortSpec, broadcast_single_row, compact_rows, equi_join,
@@ -50,12 +61,13 @@ from ..ops.relops import (
 )
 from ..plan.nodes import (
     Aggregate, Compact, Concat, Distinct, EnforceSingleRow, Filter, Join, Limit,
-    MatchRecognize, PlanNode, Project, Sort, TableScan, TopN, Unnest, Values, Window,
+    MatchRecognize, PlanNode, Project, RemoteSource, Sort, TableScan, TopN, Unnest, Values,
+    Window,
 )
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
-_ROADMAP_ITEM = {"Exchange": "A.10", "RemoteSource": "A.10"}
+_ROADMAP_ITEM = {"Exchange": "A.10"}
 
 
 @dataclass
@@ -108,11 +120,25 @@ class LocalExecutor:
         self.catalogs = catalogs
         self.default_catalog = default_catalog
         self.device = resolve_device(device)
+        # (part, num_parts): the slice of every table this executor scans;
+        # (0, 1) = the whole table
+        self.split = (0, 1)
+        # pad every slice to ceil(total / num_parts) rows (a dead tail), so
+        # all slices of a fragment share one set of learned capacities
+        self.pad_splits = False
+        # dynamic filters: scan node id -> (ScanFilter, ...), applied on the
+        # host before upload (exec/dynfilter.py); rows outside a join's
+        # build-side key domain never reach the card
+        self.scan_filters: dict = {}
+        self.rows_pruned = 0  # rows those filters dropped
+        # keys end in the table's write generation; the split and the
+        # filters are part of every key
         self._table_cols: dict = {}
         self._table_pages: dict = {}
-        # (catalog, table, generation) of tables that scanned empty: their
-        # pages hold one dead row (kernels need a capacity of at least 1)
-        self._table_empty: set = set()
+        # live rows of scan pages padded with dead rows: an empty table or
+        # slice scans as one dead row (kernels need a capacity of at least
+        # 1), a padded or filtered slice keeps a dead tail
+        self._table_live: dict = {}
         # host ms spent reading and uploading table columns in the last
         # execute() call (0 when every column was already on the device)
         self.last_upload_ms = 0.0
@@ -138,9 +164,12 @@ class LocalExecutor:
     ) -> Page:
         """Device page for the pruned column set; columns are materialized and
         uploaded lazily, once each (the scan-level projection pushdown the
-        reference does via ConnectorPageSource lazy blocks).  `types` and
-        `scan_id` keep the reference's call shape; dynamic filters, the one
-        thing that reads them there, are not ported yet.
+        reference does via ConnectorPageSource lazy blocks).  `scan_id`
+        scopes dynamic filters (exec/dynfilter.py) to this scan site: its
+        filters drop rows on the host before upload and count them in
+        `rows_pruned`; they are part of the cache key, so a filtered and an
+        unfiltered site never share columns.  `split` picks the slice of the
+        table, `pad_splits` pads it to the slices' common size.
 
         Columns are cached per write generation of the table (writable
         connectors bump it on every write).  When a table uploads at a new
@@ -149,47 +178,95 @@ class LocalExecutor:
         conn = self.catalogs.get(catalog)
         schema = conn.table_schema(table)
         gen = _generation(conn, table)
-        key_of = lambda c: (catalog, table, c, gen)
+        filters = self.scan_filters.get(scan_id, ()) if scan_id is not None else ()
+        split = self.split
+        key_of = lambda c: (catalog, table, c, split, filters, gen)
+        live_key = (catalog, table, split, filters, gen)
         missing = [c for c in columns if key_of(c) not in self._table_cols]
         if missing:
             t0 = time.perf_counter()
             self._drop_stale(catalog, table, gen)
-            data = conn.read_split(conn.get_splits(table, 1)[0], list(missing))
+            data = self._read_slice(conn, table, missing, filters)
+            pad_to = 1  # kernels need a capacity of at least 1
+            num_parts = split[1]
+            if filters:
+                # a pruned slice's size varies run to run: a pow2 capacity
+                # keeps the shapes (and learned capacities) few
+                pad_to = _pow2(len(next(iter(data.values()))) if data else 0)
+            elif self.pad_splits and num_parts > 1:
+                total = conn.estimated_row_count(table)
+                if total:
+                    pad_to = max(1, -(-int(total) // num_parts))
             for c in missing:
                 arr = data[c]
-                if len(arr) == 0:
-                    t = schema.type_of(c)
-                    arr = np.zeros((1,), dtype=object if t.is_string else t.np_dtype)
-                    if t.is_string:
-                        arr[:] = ""
-                    self._table_empty.add((catalog, table, gen))
+                n_live = len(arr)
+                if n_live < pad_to:
+                    arr = _pad_column(arr, schema.type_of(c), pad_to)
+                    self._table_live[live_key] = n_live
                 self._table_cols[key_of(c)] = Column.from_numpy(
                     schema.type_of(c), arr, device=self.device
                 )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.last_upload_ms += (time.perf_counter() - t0) * 1e3
-        page_key = (catalog, table, tuple(columns), gen)
+        page_key = (catalog, table, tuple(columns), split, filters, gen)
         cached = self._table_pages.get(page_key)
         if cached is not None:
             return cached
         cols = tuple(self._table_cols[key_of(c)] for c in columns)
         live = None
-        if (catalog, table, gen) in self._table_empty:
-            live = torch.zeros((1,), dtype=torch.bool, device=self.device)
+        n_live = self._table_live.get(live_key)
+        if n_live is not None:
+            cap = cols[0].capacity if cols else 1
+            live = torch.arange(cap, device=self.device) < n_live
         page = Page(cols, live)
         self._table_pages[page_key] = page
         return page
+
+    def _read_slice(self, conn, table: str, missing: list, filters: tuple) -> dict:
+        """Host columns `missing` of this executor's slice of `table`, rows
+        outside `filters` dropped (and counted in rows_pruned)."""
+        part, num_parts = self.split
+        want = list(missing) + [f.column for f in filters if f.column not in missing]
+        splits = [
+            s for i, s in enumerate(conn.get_splits(table, num_parts))
+            if num_parts == 1 or i % num_parts == part
+        ]
+        data = conn.read_split(splits[0], want)
+        for sp in splits[1:]:
+            more = conn.read_split(sp, want)
+            data = {
+                c: (np.ma.concatenate([data[c], more[c]])
+                    if isinstance(data[c], np.ma.MaskedArray)
+                    or isinstance(more[c], np.ma.MaskedArray)
+                    else np.concatenate([data[c], more[c]]))
+                for c in want
+            }
+        if not filters:
+            return data
+        from .dynfilter import keep_mask
+
+        nrows = len(next(iter(data.values()))) if data else 0
+        keep = keep_mask(data, filters, nrows)
+        self.rows_pruned += int(nrows - keep.sum())
+        return {c: data[c][keep] for c in missing}
 
     def _drop_stale(self, catalog: str, table: str, gen) -> None:
         """Forget the device columns and pages of `catalog.table` at every
         generation but `gen` (a loop of writes would otherwise pin one copy
         of the table per write)."""
         stale = lambda k: k[0] == catalog and k[1] == table and k[-1] != gen
-        for cache in (self._table_cols, self._table_pages):
+        for cache in (self._table_cols, self._table_pages, self._table_live):
             for k in [k for k in cache if stale(k)]:
                 del cache[k]
-        self._table_empty = {k for k in self._table_empty if not stale(k)}
+
+    def drop_scans(self) -> None:
+        """Let go of every cached scan column and page (the out-of-core
+        executor calls this between slices, so one slice's working set is
+        all that stays on the card)."""
+        self._table_cols.clear()
+        self._table_pages.clear()
+        self._table_live.clear()
 
     def drop_table_cache(self, catalog: str, table: str) -> None:
         """Forget every cached generation of `catalog.table` (after a write
@@ -197,7 +274,17 @@ class LocalExecutor:
         self._drop_stale(catalog, table, object())
 
     # ------------------------------------------------------------ execution
-    def execute(self, plan: PlanNode) -> Page:
+    def execute(
+        self,
+        plan: PlanNode,
+        remote_pages: Optional[dict[int, Page]] = None,
+        params: tuple = (),
+    ) -> Page:
+        """Run `plan`.  `remote_pages`: fragment id -> the input page of each
+        RemoteSource leaf (on this executor's device).  `params`: the bound
+        values of a prepared statement, one per ir.Param index; every
+        binding of one plan shares its learned capacities
+        (runtime/fastpath.py)."""
         nodes = _node_ids(plan)
         inputs: dict[str, Page] = {}
         self.last_upload_ms = 0.0
@@ -206,6 +293,10 @@ class LocalExecutor:
                 inputs[str(i)] = self.table_page(
                     n.catalog, n.table, n.column_names, n.output_types, scan_id=i
                 )
+            elif isinstance(n, RemoteSource):
+                if remote_pages is None or n.fragment_id not in remote_pages:
+                    raise ValueError(f"no input page for fragment {n.fragment_id}")
+                inputs[str(i)] = remote_pages[n.fragment_id]
         gens = tuple(
             _generation(self.catalogs.get(n.catalog), n.table)
             for n in nodes.values() if isinstance(n, TableScan)
@@ -223,7 +314,8 @@ class LocalExecutor:
         # nodes that overflowed, or {"sort_joins": ids} for failed hash joins
         self.last_retries = []
         for _ in range(12):  # capacity-retry loop
-            out_page, required = _trace_plan(plan, inputs, caps, sort_joins, self.device)
+            with param_context(params):
+                out_page, required = _trace_plan(plan, inputs, caps, sort_joins, self.device)
             required = _fetch_required(required)  # ONE device->host transfer
             self.last_required = required
             for key, val in required.items():
@@ -247,14 +339,18 @@ class LocalExecutor:
             if not overflow:
                 # adaptive compaction: Compact points whose observed surviving
                 # count collapses far below their tier get a TIGHT tier for
-                # every later run
+                # every later run.  A plan that serves every binding of a
+                # prepared statement keeps the largest tier any binding
+                # needed, so a binding that keeps more rows than the last
+                # one does not re-run
+                kept = learned[1] if params and learned is not None and learned[0] == gens else {}
                 for nid, n in nodes.items():
                     if not isinstance(n, Compact) or nid not in caps:
                         continue
                     req = required.get(nid)
                     if req is None:
                         continue
-                    tight = _pow2(req * 2 + 1024)
+                    tight = max(_pow2(req * 2 + 1024), kept.get(nid, 0))
                     if tight < caps[nid]:
                         caps[nid] = tight
                 self._learned_caps[plan] = (gens, caps, sort_joins)
@@ -309,7 +405,7 @@ class LocalExecutor:
                 return None
 
         def size_of(nid: int, n: PlanNode) -> int:
-            if isinstance(n, TableScan):
+            if isinstance(n, (TableScan, RemoteSource)):
                 return inputs[str(nid)].capacity
             if isinstance(n, Values):
                 return max(len(n.rows), 1)
@@ -363,7 +459,18 @@ class LocalExecutor:
             return child_sizes[0]
 
         size_of(0, nodes[0])
+        size_of = None  # the recursive closure holds `inputs`: cut the cycle
         return caps
+
+
+def _pad_column(arr, t, pad_to: int):
+    """`arr` followed by dead rows up to `pad_to` (masked where `arr` is)."""
+    fill = np.zeros((pad_to - len(arr),), dtype=object if t.is_string else t.np_dtype)
+    if t.is_string:
+        fill[:] = ""
+    if isinstance(arr, np.ma.MaskedArray):
+        return np.ma.concatenate([arr, np.ma.MaskedArray(fill, mask=True)])
+    return np.concatenate([arr, fill]) if len(arr) else fill
 
 
 def _fetch_required(required: dict) -> dict[int, int]:
@@ -478,6 +585,10 @@ def _trace_plan(
         if frag is None:
             return None
         scan, filters, keys, args, depth = frag
+        # a prepared statement's parameters enter the recipe as this run's
+        # values: constants are kernel arguments, so the compile is shared
+        filters = [bind_params(f) for f in filters]
+        args = [None if a is None else bind_params(a) for a in args]
         scan_nid = nid + 1 + depth
         page = pages.get(str(scan_nid))
         if page is None or len(page.columns) != len(scan.output_types):
@@ -524,7 +635,7 @@ def _trace_plan(
         nid = counter[0]
         counter[0] += 1
 
-        if isinstance(node, TableScan):
+        if isinstance(node, (TableScan, RemoteSource)):
             page = pages[str(nid)]
             return _Stage(scan_column_vals(page, node), page.live_mask())
 
@@ -740,6 +851,10 @@ def _trace_plan(
     finally:
         _kernels.end_capture()
         clear_run_memos()
+        # emit and emit_node call each other through their closures: a
+        # reference cycle that would keep this run's pages and intermediates
+        # on the card until the cyclic collector ran.  Cut it now
+        emit = emit_node = None
     _kernels.remember(plan, events)
     out_page = Page(
         tuple(

@@ -630,6 +630,7 @@ def _run_cuda(recipe, tensors, live, dev):
         (len(recipe.streams), 2, recipe.domain), dtype=torch.int64, device=dev
     )
     with torch.cuda.device(dev):
+        nvrtc.bind_context(dev.index)
         stream = torch.cuda.current_stream().cuda_stream
         nvrtc.memset_async(totals.data_ptr(), totals.numel() * 8, stream)
         if n == 0:

@@ -23,6 +23,7 @@ import ctypes
 import functools
 import glob
 import os
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -168,6 +169,22 @@ def _ensure_context(device_index: int) -> None:
             _check_cu(_cuda().cuDevicePrimaryCtxRetain(ctypes.byref(primary), dev),
                       "cuDevicePrimaryCtxRetain")
             _check_cu(_cuda().cuCtxSetCurrent(primary), "cuCtxSetCurrent")
+
+
+_BOUND = threading.local()  # per thread: the devices whose context it made current
+
+
+def bind_context(device_index: int) -> None:
+    """Make the device's primary context current on the calling thread, once
+    per thread: a thread on which torch made no runtime call (a prepared
+    statement's batch window runs in the caller's thread) has none, and the
+    driver API would refuse the launch."""
+    done = getattr(_BOUND, "devices", None)
+    if done is None:
+        done = _BOUND.devices = set()
+    if device_index not in done:
+        _ensure_context(device_index)
+        done.add(device_index)
 
 
 class Kernel:

@@ -27,13 +27,20 @@ JSON functions, arrays, maps, rows and lambdas take the same route: a
 nested value is dictionary-coded (tuples on the host, int32 codes on the
 device), each function runs once per distinct value, and a lambda body is
 compiled once into a python closure that runs on the host (`_py_compile`).
-The prepared-statement fast path's parameters name ROADMAP A.9b.
+A prepared statement's bound parameter (ir.Param) evaluates to its value for
+the current run (`param_context`), broadcast like a constant: one plan
+serves every binding.  Lambda bodies refuse a Param.  The fused pipeline's
+recipe is built per run, with each Param's value in it as a constant of its
+own (`bind_params`): constants are kernel arguments, so every binding runs
+the one compiled kernel and nothing cached per plan holds a value.
 """
 
 from __future__ import annotations
 
 import itertools
 import re
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -43,12 +50,36 @@ import torch
 from ..data.page import Column, Dictionary
 from ..data.types import BOOLEAN, DATE, DOUBLE, Type, VARCHAR, date_to_days
 from ..plan.ir import Call, CaseWhen, Const, FieldRef, InListIr, IrExpr, LikeIr, Param
+from ..plan.planner import _cast_const
 from . import kernels as _kernels
 
 __all__ = [
     "ColumnVal", "eval_expr", "eval_predicate", "column_val", "to_column",
-    "translate_codes",
+    "translate_codes", "param_context", "bind_params",
 ]
+
+
+class _ParamContext(threading.local):
+    """The bound values of a prepared statement's parameters during one
+    plan run (exec/compiler.py LocalExecutor.execute sets them)."""
+
+    def __init__(self):
+        self.values = ()
+
+
+_PARAMS = _ParamContext()
+
+
+@contextmanager
+def param_context(values):
+    """Bind `values` (one per ir.Param index) for the runs inside."""
+    prev = _PARAMS.values
+    _PARAMS.values = tuple(values)
+    try:
+        yield
+    finally:
+        _PARAMS.values = prev
+
 
 @dataclass
 class ColumnVal:
@@ -109,10 +140,7 @@ def eval_expr(e: IrExpr, cols: Sequence[ColumnVal], n: int, device=None) -> Colu
     if isinstance(e, LikeIr):
         return _like(e, cols, n, dev)
     if isinstance(e, Param):
-        raise NotImplementedError(
-            "Param expressions (the prepared-statement fast path) are not "
-            "ported to trino_tpu_torch yet (ROADMAP A.9b)"
-        )
+        return _param_val(e, n, dev)
     raise NotImplementedError(f"eval: {e}")
 
 
@@ -167,6 +195,49 @@ def _const_val(e: Const, n: int, dev: torch.device) -> ColumnVal:
         torch.full((n,), e.value, dtype=_torch_dtype(e.type), device=dev),
         None, None, e.type,
     )
+
+
+def _bound_value(e: Param):
+    """The python value `e` is bound to in the current run."""
+    values = _PARAMS.values
+    if e.index >= len(values):
+        raise NotImplementedError(
+            f"parameter ${e.index} evaluated outside a binding context"
+        )
+    return np.asarray(values[e.index]).reshape(()).item()
+
+
+def _param_val(e: Param, n: int, dev: torch.device) -> ColumnVal:
+    """A bound parameter: its value for this run, materialized over the
+    page as a constant is."""
+    return _const_val(Const(_bound_value(e), e.type), n, dev)
+
+
+@dataclass(frozen=True)
+class BoundParam(Const):
+    """A Param's value in the current run, as a constant of a fused recipe.
+    It keeps the parameter's index, so it never equals a literal or another
+    parameter that happens to hold the same value: the recipe's structure,
+    which keys its compile, is the same for every binding."""
+
+    index: int = -1
+
+
+def bind_params(e: IrExpr) -> IrExpr:
+    """`e` with each Param replaced by its bound value (a BoundParam) and
+    each cast of one folded, as the planner folds a literal's cast; `e`
+    itself outside a binding context."""
+    if not _PARAMS.values:
+        return e
+    if isinstance(e, Param):
+        return BoundParam(_bound_value(e), e.type, e.index)
+    if isinstance(e, Call):
+        args = tuple(bind_params(a) for a in e.args)
+        if e.op == "cast" and isinstance(args[0], BoundParam):
+            a = args[0]
+            return BoundParam(_cast_const(a.value, e.type, a.type), e.type, a.index)
+        return Call(e.op, args, e.type)
+    return e
 
 
 # -------------------------------------------------------------------- calls
@@ -1304,6 +1375,9 @@ def _py_compile(ir):
             return None if v is None else test(v) != negated
 
         return member
+    if isinstance(ir, Param):
+        # a closure holding the value would be keyed by the value
+        raise NotImplementedError("a prepared-statement parameter inside a lambda body")
     if not isinstance(ir, Call):
         raise NotImplementedError(f"lambda body node {type(ir).__name__}")
 

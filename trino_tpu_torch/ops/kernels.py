@@ -41,7 +41,7 @@ from dataclasses import dataclass
 from ..utils import metrics as _metrics
 
 __all__ = [
-    "HASH_KERNEL_LIMIT", "KernelPolicy", "get_policy", "set_policy", "impl_for",
+    "HASH_KERNEL_LIMIT", "KernelPolicy", "get_policy", "set_policy", "policy_key", "impl_for",
     "record_dispatch", "begin_capture", "end_capture", "remember",
     "events_for",
 ]
@@ -78,6 +78,18 @@ def get_policy() -> KernelPolicy:
 def set_policy(policy: KernelPolicy) -> None:
     global _POLICY
     _POLICY = policy
+
+
+def policy_key() -> tuple:
+    """Fingerprint of the kernel choice, for caches of plans: the
+    prepared-statement plan cache (runtime/fastpath.py) keys its entries
+    with it, so a plan cached under one policy is never served under
+    another.  topk.FORCE rides along: it too changes which path a TopN
+    takes."""
+    from .cuda import topk
+
+    p = _POLICY
+    return (p.enabled, p.hash_agg_max_groups, p.hash_join_max_build, topk.FORCE)
 
 
 def impl_for(device) -> str:

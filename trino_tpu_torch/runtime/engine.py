@@ -14,16 +14,26 @@ write handle (runtime/txn.py) and commits; the next scan of the table
 uploads the new generation.  Row-level DML lowers to table rewrites
 (runtime/dml.py).
 
-Not here yet: the prepared-statement fast path and the result cache
-(ROADMAP A.9b; EXECUTE takes the substitute-and-replan path), distributed
-EXPLAIN ANALYZE (A.10), the write journal and fault injection (A.11).
+A query whose estimated device bytes exceed the budget (the session's
+`query_max_memory_bytes`, else 80 % of the card's memory) runs out of core
+(exec/spill.py): its distributed plan's fragments one slice after another
+on the card, the exchanges parked on disk.  A query the estimate admitted
+but that runs out of device memory is re-run the same way.  EXECUTE takes
+the prepared-statement fast path (runtime/fastpath.py: one cached plan per
+template, parameters bound per run) and substitutes and re-plans only where
+that path declines.
+
+Not here yet: the result cache (ROADMAP A.11), distributed EXPLAIN ANALYZE
+(A.10), the write journal and fault injection (A.11).
 """
 
 from __future__ import annotations
 
 import threading
 import time as _time
+
 import numpy as np
+import torch
 
 from ..connectors.spi import CatalogManager, ColumnSchema, Connector
 from ..data.page import Page
@@ -100,6 +110,10 @@ class Engine:
         # of the transaction ids; no journal and no fault injector (A.11)
         self._txn_local = threading.local()
         self._last_txn_info = None  # EXPLAIN ANALYZE `-- txn:` footer
+        # the out-of-core executor of the last query that spilled (its
+        # spilled_bytes / spill_files / rows_pruned); None until one does
+        self.last_spill = None
+        self._device_bytes = None  # the card's memory, read at the first budget
         # host milliseconds of the last statement's write-source queries,
         # split into running them (plan + execute on the device, synchronized)
         # and exporting their pages to numpy
@@ -128,9 +142,73 @@ class Engine:
         return format_plan(self.plan(sql))
 
     def execute_page(self, sql) -> Page:
-        plan = self.plan(sql)
+        return self._execute_planned(self.plan(sql))
+
+    def _device_memory_budget(self) -> int:
+        """Per-query device-memory budget in bytes: the session property
+        when set, else (0 = auto) 80 % of the card's memory; -1 turns the
+        budget off (never out of core).  0 = no budget: on the CPU unless
+        the session sets one."""
+        budget = int(self.session.get("query_max_memory_bytes") or 0)
+        if budget == -1:
+            return 0
+        if budget:
+            return budget
+        if self.device.type != "cuda":
+            return 0
+        if self._device_bytes is None:  # the card's size: one driver call per engine
+            self._device_bytes = int(torch.cuda.mem_get_info(self.device)[1])
+        return int(self._device_bytes * 0.8)
+
+    @staticmethod
+    def _is_device_oom(e: Exception) -> bool:
+        """A device out-of-memory error (torch's, or one carrying the
+        reference's markers); nothing else re-runs out of core."""
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return True
+        s = str(e)
+        return "RESOURCE_EXHAUSTED" in s or "Out of memory" in s or "OOM" in s
+
+    def _run_out_of_core(self, plan, est: int, budget: int, params: tuple = ()) -> Page:
+        from ..exec.spill import OutOfCoreExecutor
+
+        parts = max(2, min(16, -(-est // max(budget, 1))))
+        # pow2 slices, capped at 16: past that the per-slice overhead
+        # outweighs the memory saved
+        parts = 1 << (parts - 1).bit_length()
+        ooc = OutOfCoreExecutor(
+            self.catalogs, self.default_catalog, parts, self.session, device=self.device,
+        )
+        self.last_spill = ooc  # observable: spilled_bytes / spill_files
+        return ooc.execute(plan, params)
+
+    def _execute_planned(self, plan, params: tuple = ()) -> Page:
+        """Run a planned query: every read path comes here (queries, the
+        sources of writes, EXECUTE and EXPLAIN ANALYZE EXECUTE).  `params`
+        are a prepared statement's bound values."""
         self._apply_kernel_props()
-        return self.executor.execute(plan)
+        budget = self._device_memory_budget()
+        if not budget:
+            return self.executor.execute(plan, params=params)
+        from ..exec.spill import estimate_plan_bytes
+
+        est = estimate_plan_bytes(plan, self.catalogs)
+        if est > budget:
+            return self._run_out_of_core(plan, est, budget, params)
+        try:
+            return self.executor.execute(plan, params=params)
+        except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+            if not self._is_device_oom(e):
+                raise
+        # REACTIVE spill (reference: revocable memory +
+        # SpillableHashAggregationBuilder): the estimate admitted the query
+        # but its state outgrew the card.  Outside the handler, so the
+        # failed attempt's tensors are gone; the whole tables it uploaded
+        # leave the card too, then P is sized from the shortfall
+        self.executor.drop_scans()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return self._run_out_of_core(plan, max(est, budget) * 2, budget, params)
 
     def _apply_kernel_props(self) -> None:
         """Session → data-plane kernel policy (ops/kernels.py): re-applied
@@ -152,11 +230,8 @@ class Engine:
         path's input."""
         t0 = _time.perf_counter()
         plan = self.plan(query)
-        self._apply_kernel_props()
-        page = self.executor.execute(plan)
+        page = self._execute_planned(plan)
         if page.device.type == "cuda":
-            import torch
-
             torch.cuda.synchronize(page.device)
         t1 = _time.perf_counter()
         cols = page.to_numpy_columns()
@@ -363,9 +438,15 @@ class Engine:
             return [(1,)]
 
         if isinstance(stmt, S.ExecuteStmt):
-            # typed AST substitution + full re-plan (the reference's legacy
-            # path; its parameterized plan cache ports with ROADMAP A.9b)
             sql_text = self._resolve_prepared(stmt.name)
+            from .fastpath import NotFastpath
+
+            try:
+                return self.fastpath().execute(sql_text, stmt.parameters)
+            except NotFastpath:
+                pass
+            # typed AST substitution + full re-plan (DML templates,
+            # expression parameters, the fast path switched off)
             bound = S.parse_statement(sql_text, params=stmt.parameters)
             return self.execute_stmt(bound)
 
@@ -410,19 +491,57 @@ class Engine:
         raise NotImplementedError(f"statement {type(stmt).__name__}")
 
     # ------------------------------------------------------------- explain
+    def fastpath(self):
+        """The engine's prepared-statement fast path (runtime/fastpath.py),
+        made at first use."""
+        fp = getattr(self, "_fastpath", None)
+        if fp is None:
+            from .fastpath import FastPath
+
+            fp = self._fastpath = FastPath(self)
+        return fp
+
     def _explain_execute(self, stmt) -> list[tuple]:
-        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the bound template's
-        plan, through the substitute-and-replan path."""
+        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the fast path's plan
+        and a `-- fastpath:` footer with the plan-cache disposition (hit |
+        miss | bypass) and the binding split; the substitute-and-replan plan
+        where the fast path declines."""
         from ..sql import statements as S
+        from .fastpath import NotFastpath
 
         ex_stmt = stmt.execute
         sql_text = self._resolve_prepared(ex_stmt.name)
-        bound = S.parse_statement(sql_text, params=ex_stmt.parameters)
-        if not isinstance(bound, S.QueryStmt):
-            raise ValueError("EXPLAIN EXECUTE requires a query template")
-        inner = S.Explain(bound.query, stmt.analyze, stmt.distributed)
-        text = [r[0] for r in self._execute_explain(inner)]
-        text.append("-- fastpath: off (legacy substitute-and-replan path)")
+        fp = self.fastpath()
+        t0 = _time.perf_counter()
+        try:
+            tmpl, n_params = fp._template(sql_text)
+            if len(ex_stmt.parameters) != n_params:
+                raise ValueError(
+                    f"prepared statement takes {n_params} parameters,"
+                    f" got {len(ex_stmt.parameters)}"
+                )
+            slots = fp._slots(ex_stmt.parameters)
+            entry = fp._lookup(sql_text, tmpl.query, slots)
+        except NotFastpath:
+            bound = S.parse_statement(sql_text, params=ex_stmt.parameters)
+            if not isinstance(bound, S.QueryStmt):
+                raise ValueError("EXPLAIN EXECUTE requires a query template")
+            inner = S.Explain(bound.query, stmt.analyze, stmt.distributed)
+            text = [r[0] for r in self._execute_explain(inner)]
+            text.append("-- fastpath: off (legacy substitute-and-replan path)")
+            return [(line,) for line in text]
+        info = fp.last_info
+        text = format_plan(entry.plan).splitlines()
+        if stmt.analyze:
+            params = fp._param_values(entry.slots, slots)
+            rows = self._execute_planned(entry.plan, params).to_pylist()
+            wall = _time.perf_counter() - t0
+            text.append(f"-- output rows: {len(rows)}, wall: {wall * 1e3:.1f} ms")
+        window = float(self.session.get("execute_batch_window_ms") or 0.0)
+        text.append(
+            f"-- fastpath: plan_cache={info.cache} bound={info.bound}"
+            f" baked={info.baked} batch_window_ms={window:g} executor=local"
+        )
         return [(line,) for line in text]
 
     def _execute_explain(self, stmt) -> list[tuple]:
@@ -524,12 +643,17 @@ class Engine:
     def cache_invalidate(self, name: str) -> None:
         """Every write statement (and runtime/dml.py) routes through here
         once its commit lands: the table's device columns are stale, so the
-        executor lets go of them now rather than at the next scan."""
+        executor lets go of them now rather than at the next scan, and the
+        fast path drops the cached plans that scan it."""
         try:
             _, catalog, table = self._target_ref(name)
         except KeyError:
             return  # dropping an unknown catalog's table: nothing cached
-        self.executor.drop_table_cache(catalog, table.split(".")[-1])
+        table = table.split(".")[-1]
+        self.executor.drop_table_cache(catalog, table)
+        fp = getattr(self, "_fastpath", None)
+        if fp is not None:
+            fp.invalidate_table(catalog, table)
 
     def _resolve_prepared(self, name: str) -> str:
         if name not in self._prepared:
