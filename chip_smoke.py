@@ -22,8 +22,9 @@ independent numpy reference and against the same query on
 lineitem with the variance / correlation family, bool_and, a percentile, two
 count(DISTINCT) and approx_distinct, in the default setting and (Q18, the ten
 queries that need CASE / IN / LIKE / substring / DISTINCT, and that GROUP BY)
-with data_plane_kernels = false; every statement against the CPU engine,
-Q18, q12, q14, q16, q22 and the GROUP BY against numpy references.  The
+with data_plane_kernels = false; Q18, q12, q14, q16, q22 and the GROUP BY
+against numpy references, every other statement (and the GROUP BY) against
+the CPU engine.  The
 `tpcds` phase runs every statement of tests/tpcds_queries.py at TPC-DS scale
 factor 1 (24 tables, generated from the seed by the copied generator) through
 a second card engine, in the default setting and (the window, round and
@@ -59,7 +60,16 @@ phase prepares four templates (Q6-, Q1-, Q3- and TopN-shaped) and EXECUTEs
 literals; a binding that hits the plan cache must add no NVRTC compile and
 no learned-capacity entry, and the Q6 and Q1 shapes must run the fused
 pipeline (kernel 2) with their bound values; then one batch window of 8 threads and the
-fast-path test file's templates at SF 0.01, card vs CPU.
+fast-path test file's templates at SF 0.01, card vs CPU.  The `lake` phase
+writes TPC-H into a temporary directory as Parquet (lineitem and orders in
+row groups of 262,144 rows), ORC (lineitem, orders) and SQLite (customer,
+nation), runs the 22 queries from Parquet through a fresh card engine (rows
+equal the `tpch` phase's; each cold run split into file read, conversion,
+encode, upload and execute), Q1 / Q6 over ORC, a join across the three
+formats, Q1 and Q18 out of core over uneven row groups, Iceberg writes with
+time travel, rollback and an EXECUTE across a commit, and GROUP BYs over an
+8,388,608-row Faker table, each against its reference; then the same at SF
+0.01, card vs CPU.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -1053,6 +1063,14 @@ def reference_rows(li: dict, orders: dict, customer: dict) -> dict:
 TPCH_FILE = Path(__file__).resolve().parent / "tests" / "tpch_queries.py"
 # the ten queries that need CASE, IN, LIKE, substring or count(DISTINCT)
 NEW_QUERIES = ("q02", "q08", "q09", "q12", "q13", "q14", "q16", "q19", "q20", "q22")
+# the queries with a numpy reference: at full size the card's rows are held
+# against it alone, not against the CPU engine too (the CPU engine's SF 1
+# runs cost the script most of its time; tests run it at SF 0.01)
+TPCH_NUMPY_ONLY = ("q12", "q14", "q16", "q18", "q22")
+# timed warm runs per statement of the tpcds, nested and spill phases: one
+# keeps the script inside its time limit on a slow host (after the CPU
+# engine, those phases' repeated runs cost it most)
+SHORT_RUNS = 1
 # the variance and correlation family, bool_and, a percentile, two DISTINCT
 # counts (two sorts) and a HyperLogLog in one grouped node.  bool_and's
 # predicate is true in every row of the N groups and mixed in the A and R
@@ -1480,6 +1498,9 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
         key = (sql, flag) if name == "agg" else sql
         if key in cpu_seen:
             cpu_rows, cpu_variant = cpu_seen[key]
+        elif phase == "tpch" and name in TPCH_NUMPY_ONLY:
+            cpu_rows, cpu_variant = want[name], "numpy"
+            cpu_seen[key] = (cpu_rows, cpu_variant)
         else:
             cpu_engine.execute(f"set session data_plane_kernels = {flag}")
             t0 = time.perf_counter()
@@ -1537,11 +1558,12 @@ def statement_timing(engine, sql, runs) -> dict:
     }
 
 
-def run_lines(engine, queries, variants, want, ordered=None, agg_tols=None):
+def run_lines(engine, queries, variants, want, ordered=None, agg_tols=None, keep=None):
     """Run each variant's statements once on the card (the path whose
     launches are counted): rows against the numpy reference where there is
     one, the dispatch events each run must show, launches per statement.
-    Returns (lines, launches)."""
+    `keep`, where given, takes each run's rows by "name/variant".  Returns
+    (lines, launches)."""
     from trino_tpu_torch.ops import kernels
 
     launches = {}
@@ -1571,6 +1593,8 @@ def run_lines(engine, queries, variants, want, ordered=None, agg_tols=None):
             if name == "topn" and retries:
                 fail(f"topn/{variant}: the first run re-ran for {retries}")
             launches[what] = {k: after[k] - before[k] for k in KERNEL_NAMES}
+            if keep is not None:
+                keep[what] = rows
             lines.append((variant, flag, name, sql, cold_ms, events, retries))
     return lines, launches
 
@@ -1624,7 +1648,8 @@ def tpch_phase(engine, cpu_engine, scale):
     the default kernel setting (`tpch`), and Q18, NEW_QUERIES and AGG with
     data_plane_kernels = false
     (`tpch_operators`); Q18, q12, q14, q16, q22 and AGG against numpy, every
-    statement against the CPU engine.  Returns the path's launch counts."""
+    other statement (and AGG) against the CPU engine.  Returns (the path's launch counts,
+    the card's rows of each query in the default setting)."""
     from trino_tpu_torch.connectors.tpch import tpch_data
 
     queries, ordered = tpch_queries()
@@ -1653,7 +1678,8 @@ def tpch_phase(engine, cpu_engine, scale):
                 for variant, flag, names, must in paths for name in names]
     # every count to 0 just before the path, read just after
     reset_kernel_counts()
-    lines, launches = run_lines(engine, queries, variants, want, ordered, agg_tols)
+    kept = {}
+    lines, launches = run_lines(engine, queries, variants, want, ordered, agg_tols, kept)
     counts = kernel_counts()
     for k in ("segment_reduce", "hash_build", "hash_probe"):
         if counts[k] < 1:
@@ -1665,7 +1691,7 @@ def tpch_phase(engine, cpu_engine, scale):
         engine, [ln[:6] for ln in lines if ln[0] == "tpch" and ln[2] in ("q18", "agg")],
         require_all=False)})
     measure_lines(engine, cpu_engine, lines, want, launches, "tpch", 3, ordered, agg_tols)
-    return counts
+    return counts, {name: kept[f"{name}/tpch"] for name in all22}
 
 
 # ------------------------------------------------ TPC-DS and window checksums
@@ -1844,7 +1870,7 @@ def tpcds_phase(engine, scale):
             fail(f"tpcds path never launched {k}: {counts}")
 
     for (variant, flag, name, sql, cold_ms, events, retries), eng, runs in (
-        [(ln, ds, 3) for ln in ds_lines] + [(ln, engine, 3) for ln in w_lines]
+        [(ln, ds, SHORT_RUNS) for ln in ds_lines] + [(ln, engine, 3) for ln in w_lines]
     ):
         what = f"{name}/{variant}"
         eng.execute(f"set session data_plane_kernels = {flag}")
@@ -2432,7 +2458,7 @@ def nested_reference(part: dict, orders: dict, events: dict) -> dict:
 
 
 def nested_timing(engine, sql) -> dict:
-    """3 warm runs of a statement on the card, layer by layer (plan,
+    """SHORT_RUNS warm runs of a statement on the card, layer by layer (plan,
     execute, fetch), inside one card-only profiler trace: `warm_ms` is the
     median run, the device's busy time is the trace's per run.  (One set of
     runs, not three as in statement_timing: this path's host passes take
@@ -2450,10 +2476,10 @@ def nested_timing(engine, sql) -> dict:
         page.to_pylist()
         laps.append((t0, t1, t2, time.perf_counter()))
 
-    busy = traced_busy(run, 3)
-    while len(laps) < 3:  # the profiler failed before the runs: run them plain
+    busy = traced_busy(run, SHORT_RUNS)
+    while len(laps) < SHORT_RUNS:  # the profiler failed before the runs: run them plain
         run()
-    laps = laps[-3:]
+    laps = laps[-SHORT_RUNS:]
     med = lambda i, j: statistics.median((lap[j] - lap[i]) * 1e3 for lap in laps)
     warm_ms = med(0, 3)
     idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
@@ -2765,14 +2791,14 @@ def spill_phase(engine, scale):
         budget = est // 6  # ceil(est / budget) is 6 or 7: 8 parts
         engine.session.set("query_max_memory_bytes", "-1")
         rows_mem, peak_mem, cold_mem = peak_run(engine, sql)
-        warm_mem = warm_median(engine, sql)
+        warm_mem = warm_median(engine, sql, SHORT_RUNS)
         in_memory[name] = rows_mem
         engine.session.set("query_max_memory_bytes", str(budget))
         before = kernel_counts()
         rows, peak, cold = peak_run(engine, sql)
         after = kernel_counts()
         ooc = engine.last_spill
-        warm = warm_median(engine, sql)
+        warm = warm_median(engine, sql, SHORT_RUNS)
         engine.session.set("query_max_memory_bytes", "0")
         launches = {k: after[k] - before[k] for k in KERNEL_NAMES}
         for k in KERNEL_NAMES:
@@ -3057,6 +3083,587 @@ def fastpath_cross_check(rng) -> int:
     return len(stmts)
 
 
+# ------------------------------------------------------- files and lakehouse
+
+LAKE_ROW_GROUP = 262_144  # lineitem and orders: lineitem's 8 slices are uneven
+LAKE_FAKER_ROWS = 8_388_608  # at scale 1
+LAKE_CROSS_SCALE = 0.01
+# the Faker table of the SF 0.01 cross-check: the CPU engine's plain hash
+# build walks a round per collision chain, and its GROUP BY user_id over a
+# hundredth of the full table (~53 K groups) costs tens of seconds
+LAKE_CROSS_FAKER_ROWS = 8_192
+LAKE_OOC = ("q01", "q18")  # out of core over Parquet, 8 parts
+LAKE_KERNEL_CHECKS = ("q01", "q18", "faker_top_users")  # held against the plain versions
+# a Q3 / Q10-shaped join across three catalogs; the same SQL runs on `tpch`
+LAKE_JOIN = """
+select c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) as revenue, n_name
+from {c}customer, {o}orders, {l}lineitem, {c}nation
+where c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate >= date '1993-10-01' and o_orderdate < date '1994-01-01'
+  and l_returnflag = 'R' and c_nationkey = n_nationkey
+group by c_custkey, c_name, n_name
+order by revenue desc, c_custkey
+limit 20
+"""
+ORDERS_COLS = ("o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate, "
+               "o_orderpriority, o_clerk, o_shippriority, o_comment")
+KEY_SHIFT = 100_000_000  # inserted orders get keys past every generated one
+# the writes to Iceberg, in order: each commits one snapshot (the CTAS two:
+# the create's empty one first)
+ICEBERG_STEPS = (
+    ("ctas", "create table iceberg.orders as select * from parquet.orders"),
+    ("insert", f"insert into iceberg.orders select o_orderkey + {KEY_SHIFT}, "
+               + ORDERS_COLS.split(", ", 1)[1]
+               + " from parquet.orders where o_orderdate < date '1993-01-01'"),
+    ("delete", "delete from iceberg.orders where o_orderdate >= date '1995-01-01' "
+               "and o_orderdate < date '1996-01-01'"),
+    ("update", "update iceberg.orders set o_totalprice = o_totalprice + 1.00 "
+               "where o_orderpriority = '1-URGENT'"),
+)
+ICEBERG_TOTALS = "select count(*), sum(o_totalprice) from iceberg.{t}"
+ICEBERG_PREPARED = ("select count(*), sum(o_totalprice) from iceberg.orders "
+                    "where o_orderdate >= ?")
+ICEBERG_LATE = (f"insert into iceberg.orders select o_orderkey + {2 * KEY_SHIFT}, "
+                + ORDERS_COLS.split(", ", 1)[1]
+                + " from parquet.orders where o_orderdate >= date '1998-01-01'")
+FAKER = {
+    "faker_users": ("select count(*), sum(c), sum(c * c), max(c), sum(s) from "
+                    "(select user_id, count(*) as c, sum(amount) as s "
+                    "from faker.events group by user_id)"),
+    "faker_top_users": ("select user_id, count(*) as c from faker.events group by user_id "
+                        "order by c desc, user_id limit 10"),
+    "faker_kind_day": ("select kind, day, count(*), sum(amount) from faker.events "
+                       "group by kind, day order by kind, day"),
+}
+
+
+def write_lake(root: str, scale: float) -> dict:
+    """TPC-H at `scale` written under `root` by the port's conversions: the 8
+    tables as Parquet (lineitem and orders in row groups of 262,144 rows),
+    lineitem and orders as ORC, customer and nation in a SQLite file.
+    Returns seconds by step."""
+    import os
+    import sqlite3
+
+    import pyarrow as pa
+    import pyarrow.orc as orc
+    import pyarrow.parquet as pq
+
+    from trino_tpu_torch.connectors.parquet import _numpy_to_arrow
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.connectors.tpch.generator import TPCH_SCHEMAS
+
+    secs = dict.fromkeys(("convert_s", "parquet_s", "orc_s", "sqlite_s"), 0.0)
+
+    def lap(key, t0):
+        secs[key] += time.perf_counter() - t0
+
+    for table, schema in TPCH_SCHEMAS.items():
+        data = tpch_data(table, scale)
+        t0 = time.perf_counter()
+        tbl = pa.table({c: _numpy_to_arrow(data[c], t) for c, t in schema})
+        lap("convert_s", t0)
+        if table == "lineitem":
+            secs.update(conversion_times(data, dict(schema), tbl))
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "parquet", table))
+        groups = LAKE_ROW_GROUP if table in ("lineitem", "orders") else None
+        pq.write_table(tbl, os.path.join(root, "parquet", table, "part-0.parquet"),
+                       row_group_size=groups)
+        lap("parquet_s", t0)
+        if table in ("lineitem", "orders"):
+            t0 = time.perf_counter()
+            os.makedirs(os.path.join(root, "orc", table))
+            orc.write_table(tbl, os.path.join(root, "orc", table, "part-0.orc"))
+            lap("orc_s", t0)
+        if table in ("customer", "nation"):
+            t0 = time.perf_counter()
+            decl = lambda t: ("text" if t.is_string else f"decimal({t.precision},{t.scale})"
+                              if t.is_decimal else "integer")
+            cols = [data[c].tolist() if not t.is_decimal else (data[c] / 10.0**t.scale).tolist()
+                    for c, t in schema]
+            db = sqlite3.connect(os.path.join(root, "tpch.db"))
+            try:
+                db.execute(f"create table {table} ("
+                           + ", ".join(f"{c} {decl(t)}" for c, t in schema) + ")")
+                db.executemany(f"insert into {table} values ({', '.join('?' * len(schema))})",
+                               zip(*cols))
+                db.commit()
+            finally:
+                db.close()
+            lap("sqlite_s", t0)
+    secs["write_s"] = sum(secs[k] for k in ("convert_s", "parquet_s", "orc_s", "sqlite_s"))
+    return secs
+
+
+def conversion_times(li: dict, types: dict, tbl) -> dict:
+    """Host seconds per million values of the two conversions the port
+    vectorises, beside the per-value loops the JAX package's module runs
+    (the port's copy still runs them for object lanes): l_extendedprice into
+    a decimal128 arrow array from its int64 lanes, and l_comment out of
+    arrow through one to_numpy call against to_pylist."""
+    from trino_tpu_torch.connectors.parquet import _column_to_numpy, _numpy_to_arrow
+
+    n = min(1_000_000, len(li["l_extendedprice"]))
+    lanes, t = li["l_extendedprice"][:n], types["l_extendedprice"]
+    comments = tbl.column("l_comment").slice(0, n)
+
+    def per_million(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e6 / n
+
+    return {"decimal_to_arrow_s_per_million": per_million(lambda: _numpy_to_arrow(lanes, t)),
+            "decimal_per_value_s_per_million": per_million(
+                lambda: _numpy_to_arrow(lanes.astype(object), t)),
+            "varchar_to_numpy_s_per_million": per_million(
+                lambda: _column_to_numpy(comments, types["l_comment"])),
+            "varchar_to_pylist_s_per_million": per_million(
+                lambda: np.asarray(comments.to_pylist(), dtype=object))}
+
+
+def lake_engine(device, root: str, faker_rows: int, warehouse: str):
+    """An engine over the files of write_lake (default catalog `parquet`,
+    also `orc`, `sqlite`), an empty Iceberg warehouse under `root`, and a
+    Faker `events` table of `faker_rows` rows made through the connector
+    API."""
+    import os
+
+    from trino_tpu_torch.connectors.dbapi import SqliteConnector
+    from trino_tpu_torch.connectors.faker import FakerConnector
+    from trino_tpu_torch.connectors.iceberg import IcebergConnector
+    from trino_tpu_torch.connectors.orc import OrcConnector
+    from trino_tpu_torch.connectors.parquet import ParquetConnector
+    from trino_tpu_torch.connectors.spi import ColumnSchema
+    from trino_tpu_torch.data.types import BIGINT, DATE, DOUBLE, VARCHAR
+    from trino_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(default_catalog="parquet", device=device)
+    eng.register_catalog("parquet", ParquetConnector(os.path.join(root, "parquet")))
+    eng.register_catalog("orc", OrcConnector(os.path.join(root, "orc")))
+    eng.register_catalog("sqlite", SqliteConnector(os.path.join(root, "tpch.db")))
+    eng.register_catalog("iceberg", IcebergConnector(os.path.join(root, warehouse)))
+    faker = FakerConnector()
+    faker.create_table("events", [ColumnSchema("user_id", BIGINT),
+                                  ColumnSchema("amount", DOUBLE), ColumnSchema("kind", VARCHAR),
+                                  ColumnSchema("day", DATE)],
+                       rows=faker_rows)
+    eng.register_catalog("faker", faker)
+    return eng
+
+
+def on_orc(sql: str) -> str:
+    import re
+
+    return re.sub(r"\blineitem\b", "orc.lineitem", sql)
+
+
+class ScanClock:
+    """Host time of the cold scans of one statement, by step: the Parquet and
+    ORC connectors' read_split (the file read, and within it the arrow to
+    numpy conversion), the VARCHAR dictionary encode, and what is left of the
+    upload (padding, the copies to the card).  Wraps those functions while
+    it is open."""
+
+    def __init__(self):
+        from trino_tpu_torch.connectors import orc, parquet
+        from trino_tpu_torch.data import page
+
+        self.mods = parquet, orc, page
+        self.real = (parquet.ParquetConnector.read_split, orc.OrcConnector.read_split,
+                     parquet._column_to_numpy, page.Dictionary.encode)
+        self.encodes = []  # (rows, distinct values, ms) of each encode
+
+    def reset(self):
+        self.read_ms = self.convert_ms = self.encode_ms = 0.0
+        self.rows = 0
+
+    def __enter__(self):
+        parquet, orc, page = self.mods
+        read_pq, read_orc, convert, encode = self.real
+        clock = self
+        self.reset()
+
+        def timed(read):
+            def timed_read(conn, split, columns):
+                t0 = time.perf_counter()
+                out = read(conn, split, columns)
+                clock.read_ms += (time.perf_counter() - t0) * 1e3
+                clock.rows += len(next(iter(out.values()))) if out else 0
+                return out
+            return timed_read
+
+        def timed_convert(chunked, t):
+            t0 = time.perf_counter()
+            out = convert(chunked, t)
+            clock.convert_ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_encode(values):
+            t0 = time.perf_counter()
+            codes, d = encode(values)
+            ms = (time.perf_counter() - t0) * 1e3
+            clock.encode_ms += ms
+            clock.encodes.append((len(codes), len(d.values), ms))
+            return codes, d
+
+        parquet.ParquetConnector.read_split = timed(read_pq)
+        orc.OrcConnector.read_split = timed(read_orc)
+        parquet._column_to_numpy = orc._column_to_numpy = timed_convert
+        page.Dictionary.encode = staticmethod(timed_encode)
+        return self
+
+    def __exit__(self, *exc):
+        parquet, orc, page = self.mods
+        parquet.ParquetConnector.read_split, orc.OrcConnector.read_split = self.real[:2]
+        parquet._column_to_numpy = orc._column_to_numpy = self.real[2]
+        page.Dictionary.encode = staticmethod(self.real[3])
+
+
+def lake_statements() -> dict:
+    """The read statements of the lake path: the 22 TPC-H queries and the
+    ten most expensive line items over Parquet, Q1 / Q6 over ORC, the join
+    across SQLite, Parquet and ORC, the Faker GROUP BYs."""
+    queries, _ = tpch_queries()
+    stmts = {n: queries[n] for n in sorted(queries)}
+    stmts["topn"] = TOPN
+    stmts["orc_q01"], stmts["orc_q06"] = on_orc(Q01), on_orc(Q06)
+    stmts["cross_join"] = LAKE_JOIN.format(c="sqlite.", o="parquet.", l="orc.")
+    stmts.update(FAKER)
+    return stmts
+
+
+def iceberg_sequence(eng, counted, measure: bool) -> dict:
+    """The Iceberg steps on `eng` (each write timed as query / export /
+    commit with `measure`), the totals of every snapshot through
+    "orders@N", "orders$snapshots", a rollback, and one prepared EXECUTE
+    before and after a commit.  Returns name -> rows, plus the writes'
+    timings under "writes"."""
+    conn = eng.catalogs.get("iceberg")
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    out, writes = {}, []
+    for step, sql in ICEBERG_STEPS:
+        eng._last_txn_info = None
+        sync()
+        t0 = time.perf_counter()
+        out[f"iceberg_{step}"] = counted(lambda: eng.execute(sql))
+        sync()
+        info = eng._last_txn_info
+        writes.append({"step": step, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                       **eng.last_write_split, "commit_ms": info and info["commit_ms"],
+                       "result": out[f"iceberg_{step}"]})
+        out[f"iceberg_{step}_totals"] = counted(
+            lambda: eng.execute(ICEBERG_TOTALS.format(t="orders")))
+    snaps = [s["snapshot_id"] for s in conn.snapshots("orders")]
+    for sid in snaps:
+        out[f"iceberg_at_{sid}"] = counted(
+            lambda: eng.execute(ICEBERG_TOTALS.format(t=f'"orders@{sid}"')))
+    out["iceberg_snapshots"] = counted(lambda: eng.execute(
+        'select snapshot_id, file_count, row_count from iceberg."orders$snapshots" '
+        "order by snapshot_id"))
+    conn.rollback_to_snapshot("orders", snaps[2])  # back to the INSERT's snapshot
+    out["iceberg_rolled_back"] = counted(lambda: eng.execute(ICEBERG_TOTALS.format(t="orders")))
+    eng.execute(f"prepare lake_p from {ICEBERG_PREPARED}")
+    fp = eng.fastpath()
+    out["execute_before"] = counted(lambda: eng.execute("execute lake_p using date '1994-01-01'"))
+    out["execute_again"] = counted(lambda: eng.execute("execute lake_p using date '1994-01-01'"))
+    cache_again = fp.last_info.cache
+    out["iceberg_late"] = counted(lambda: eng.execute(ICEBERG_LATE))
+    out["execute_after"] = counted(lambda: eng.execute("execute lake_p using date '1994-01-01'"))
+    from trino_tpu_torch.exec.compiler import _generation
+
+    gens = {k[-1] for k in eng.executor._table_cols if k[:2] == ("iceberg", "orders")}
+    if cache_again != "hit" or fp.last_info.cache != "miss":
+        fail(f"lake iceberg: EXECUTE plan cache {cache_again} before the commit and "
+             f"{fp.last_info.cache} after it (expected hit, then miss)")
+    if gens != {_generation(conn, "orders")}:
+        fail(f"lake iceberg: the scan cache holds generations {gens} after the commit")
+    out["writes"] = writes if measure else None
+    return out
+
+
+def iceberg_reference(orders: dict) -> dict:
+    """numpy over the generator's orders: count and price total of each
+    snapshot, in the order of ICEBERG_STEPS (the create's empty snapshot
+    first), and of the EXECUTE before and after the late INSERT."""
+    day = orders["o_orderdate"]
+    price = orders["o_totalprice"].astype(np.int64)
+    urgent = _strs(orders["o_orderpriority"]) == "1-URGENT"
+    early = day < _days(1993, 1, 1)
+    # the table as (dates, prices, urgent flags) after each step
+    base = (day, price, urgent)
+    ins = tuple(np.concatenate([a, a[early]]) for a in base)
+    keep = ~((ins[0] >= _days(1995, 1, 1)) & (ins[0] < _days(1996, 1, 1)))
+    dele = tuple(a[keep] for a in ins)
+    upd = (dele[0], dele[1] + np.where(dele[2], 100, 0), dele[2])
+    late = day >= _days(1998, 1, 1)
+    tot = lambda t: (len(t[0]), dec(exact_sum(t[1]), 2))
+    after_rollback = tuple(np.concatenate([a, b[late]]) for a, b in zip(ins, base))
+    since = lambda t: (int((t[0] >= _days(1994, 1, 1)).sum()),
+                       dec(exact_sum(t[1][t[0] >= _days(1994, 1, 1)]), 2))
+    return {"snapshots": [(0, None)] + [tot(t) for t in (base, ins, dele, upd)],
+            "rolled_back": tot(ins), "execute_before": since(ins),
+            "execute_after": since(after_rollback)}
+
+
+def faker_reference(eng) -> dict:
+    """numpy over the Faker connector's own read_split columns."""
+    conn = eng.catalogs.get("faker")
+    cols = conn.read_split(conn.get_splits("events", 1)[0], ["user_id", "amount", "kind", "day"])
+    uid, amount = cols["user_id"], cols["amount"]
+    users, first, counts = np.unique(uid, return_index=True, return_counts=True)
+    top = np.lexsort((users, -counts))[:10]
+    kinds = _strs(cols["kind"])
+    keys = np.rec.fromarrays([kinds, cols["day"]])
+    groups, inv = np.unique(keys, return_inverse=True)
+    per_count = np.bincount(inv.ravel())
+    per_sum = np.bincount(inv.ravel(), weights=amount)
+    per_abs = np.bincount(inv.ravel(), weights=np.abs(amount))
+    return {
+        "faker_users": (len(users), int(counts.sum()), int((counts.astype(np.int64) ** 2).sum()),
+                        int(counts.max()), float(amount.sum()), float(np.abs(amount).sum())),
+        "faker_top_users": [(int(users[i]), int(counts[i])) for i in top],
+        "faker_kind_day": [(str(g[0]), _iso(int(g[1])), int(c), float(sm), float(ab))
+                           for g, c, sm, ab in zip(groups, per_count, per_sum, per_abs)],
+        "rows": len(uid),
+    }
+
+
+def faker_match(rows: dict, want: dict, what: str) -> None:
+    n = want["rows"]
+    g, total, squares, most, s = rows["faker_users"][0]
+    users, w_total, w_squares, w_most, w_sum, w_abs = want["faker_users"]
+    if (g, total, squares, most) != (users, w_total, w_squares, w_most):
+        fail(f"{what} faker_users: {(g, total, squares, most)} != "
+             f"{(users, w_total, w_squares, w_most)}")
+    if abs(s - w_sum) > sum_tolerance(n) * w_abs:
+        fail(f"{what} faker_users: sum {s} != {w_sum}")
+    rows_match(rows["faker_top_users"], want["faker_top_users"], f"{what} faker_top_users")
+    got = rows["faker_kind_day"]
+    if len(got) != len(want["faker_kind_day"]):
+        fail(f"{what} faker_kind_day: {len(got)} groups, expected {len(want['faker_kind_day'])}")
+    for r, (x, (k, d, c, sm, ab)) in enumerate(zip(got, want["faker_kind_day"])):
+        if (x[0], str(x[1]), x[2]) != (k, d, c) or abs(x[3] - sm) > sum_tolerance(c) * ab:
+            fail(f"{what} faker_kind_day row {r}: {x} != {(k, d, c, sm)}")
+
+
+def run_lake(eng, measure: bool) -> dict:
+    """The lake path once on `eng`: every statement of lake_statements,
+    out of core over Parquet, the Iceberg sequence.  With `measure` (the
+    card at full size) each read statement's cold run is split by host step
+    and timed warm, and the launches of every statement's first run are
+    counted.  Returns name -> rows, and the measurements."""
+    cuda = eng.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def counted(fn):
+        before = kernel_counts() if measure else None
+        out = fn()
+        if measure:
+            after = kernel_counts()
+            for k in KERNEL_NAMES:
+                counts[k] += after[k] - before[k]
+        return out
+
+    rows, lines = {}, []
+    eng.execute("set session data_plane_kernels = true")
+    clock = ScanClock()
+    for name, sql in lake_statements().items():
+        groups0 = {impl: dispatch_count("group_by", impl) for impl in ("cuda", "sort", "torch")}
+        with clock:
+            before = kernel_counts() if measure else None
+            sync()
+            t0 = time.perf_counter()
+            rows[name] = counted(lambda: eng.query(sql))
+            sync()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+        if not measure:
+            continue
+        after = kernel_counts()
+        up = eng.executor.last_upload_ms
+        line = {"phase": "lake", "query": name, "rows": len(rows[name]),
+                "cold_ms": cold_ms, "file_read_ms": clock.read_ms - clock.convert_ms,
+                "convert_ms": clock.convert_ms, "encode_ms": clock.encode_ms,
+                "upload_ms": up - clock.read_ms - clock.encode_ms, "execute_ms": cold_ms - up,
+                "rows_scanned": clock.rows,
+                "scan_rows_per_s": clock.rows / (up / 1e3) if up else None,
+                "first_run_retries": list(eng.executor.last_retries),
+                "group_by": {impl: dispatch_count("group_by", impl) - n
+                             for impl, n in groups0.items()},
+                "launches": {k: after[k] - before[k] for k in KERNEL_NAMES}}
+        if name in ("faker_users", "faker_top_users") and line["group_by"]["cuda"] < 1:
+            fail(f"lake {name}: GROUP BY user_id did not take the hash path: "
+                 f"{line['group_by']}")
+        line["warm_ms"] = warm_median(eng, sql)
+        busy = device_busy(eng, sql, 3)
+        line.update(device_busy_ms=busy["device_busy_ms"], top_kernels=busy["top_kernels"],
+                    device_idle_share=None if busy["device_busy_ms"] is None
+                    else 1.0 - busy["device_busy_ms"] / line["warm_ms"])
+        lines.append(line)
+    # out of core over Parquet: lineitem's 23 row groups in 8 uneven slices
+    from trino_tpu_torch.exec.spill import estimate_plan_bytes
+
+    queries, _ = tpch_queries()
+    ooc = {}
+    for name in LAKE_OOC:
+        sql = Q01 if name == "q01" else queries[name]
+        est = estimate_plan_bytes(eng.plan(sql), eng.catalogs)
+        if measure:
+            eng.session.set("query_max_memory_bytes", "-1")
+            mem_rows, peak_mem, _ = peak_run(eng, sql)
+        else:
+            mem_rows = eng.query(sql)
+        eng.session.set("query_max_memory_bytes", str(est // 6))
+        if measure:
+            before = kernel_counts()
+            got, peak, ms = peak_run(eng, sql)
+            after = kernel_counts()
+            for k in KERNEL_NAMES:
+                counts[k] += after[k] - before[k]
+        else:
+            got = eng.query(sql)
+        eng.session.set("query_max_memory_bytes", "0")
+        spill = eng.last_spill
+        if spill is None or spill.parts != SPILL_PARTS:
+            fail(f"lake out of core {name}: expected {SPILL_PARTS} parts, got "
+                 f"{spill and spill.parts}")
+        rows_agree(got, mem_rows, name, f"lake out of core {name} vs in memory")
+        rows[f"ooc_{name}"] = got
+        ooc[name] = {"parts": spill.parts, "spill_files": spill.spill_files,
+                     "slices_that_retried": len(spill.slice_retries)}
+        if measure:
+            if peak >= peak_mem:
+                fail(f"lake out of core {name}: peak {peak} is not below the in-memory "
+                     f"peak {peak_mem}")
+            ooc[name].update(cold_ms=ms, peak_bytes=peak, peak_bytes_in_memory=peak_mem,
+                             spilled_bytes=spill.spilled_bytes,
+                             slice_retries=spill.slice_retries)
+    rows.update(iceberg_sequence(eng, counted, measure))
+    return {"rows": rows, "lines": lines, "ooc": ooc, "launches": counts,
+            "encodes": sorted(clock.encodes, key=lambda e: -e[2])[:5]}
+
+
+def lake_check(rows: dict, scale: float, tpch_rows, eng, tpch_engine, what: str) -> None:
+    """The lake path's rows against their references: the `tpch` connector's
+    rows of each query (from the tpch phase at full size, else run here on
+    `tpch_engine`), ORC against Parquet, the cross-catalog join and the TopN
+    against `tpch_engine`, Iceberg against numpy over the generator's orders,
+    Faker against numpy over the connector's own columns."""
+    from trino_tpu_torch.connectors.tpch import tpch_data
+
+    queries, ordered = tpch_queries()
+    for name in sorted(queries):
+        want = tpch_rows[name] if tpch_rows is not None else tpch_engine.query(queries[name])
+        rows_agree(rows[name], want, name, f"{what} {name} (Parquet) vs tpch", ordered)
+    rows_match(rows["topn"], tpch_engine.query(TOPN), f"{what} topn (Parquet) vs tpch")
+    for q in ("q01", "q06"):
+        rows_match(rows[f"orc_{q}"], rows[q], f"{what} {q}: ORC vs Parquet")
+    rows_match(rows["cross_join"], tpch_engine.query(LAKE_JOIN.format(c="", o="", l="")),
+               f"{what} cross-catalog join vs tpch")
+    want = iceberg_reference(tpch_data("orders", scale))
+    totals = [rows[f"iceberg_at_{i}"][0] for i in range(1, len(want["snapshots"]) + 1)]
+    rows_match(totals, want["snapshots"], f"{what} iceberg snapshot totals")
+    for k, (step, _) in enumerate(ICEBERG_STEPS, 1):
+        rows_match(rows[f"iceberg_{step}_totals"], [want["snapshots"][k]],
+                   f"{what} iceberg after {step}")
+    rows_match([(r[0], r[2]) for r in rows["iceberg_snapshots"]],
+               [(i + 1, c) for i, (c, _) in enumerate(want["snapshots"])],
+               f"{what} iceberg orders$snapshots")
+    rows_match(rows["iceberg_rolled_back"], [want["rolled_back"]], f"{what} iceberg rollback")
+    rows_match(rows["execute_before"], [want["execute_before"]], f"{what} EXECUTE before")
+    rows_match(rows["execute_again"], [want["execute_before"]], f"{what} EXECUTE again")
+    rows_match(rows["execute_after"], [want["execute_after"]], f"{what} EXECUTE after commit")
+    faker_match(rows, faker_reference(eng), what)
+
+
+def lake_cross_check(tmp: str) -> int:
+    """The lake path at SF 0.01 on a card engine and on Engine(device="cpu"),
+    every statement's rows compared, every result held as at full size; the
+    CPU engine's run makes no CUDA allocation."""
+    import os
+
+    root = os.path.join(tmp, "cross")
+    write_lake(root, LAKE_CROSS_SCALE)
+    card = lake_engine("cuda", root, LAKE_CROSS_FAKER_ROWS, "warehouse-cuda")
+    host = lake_engine("cpu", root, LAKE_CROSS_FAKER_ROWS, "warehouse-cpu")
+    got = run_lake(card, measure=False)["rows"]
+    torch.cuda.synchronize()
+    before = cuda_allocations()
+    exp = run_lake(host, measure=False)["rows"]
+    if cuda_allocations() != before:
+        fail("lake SF 0.01: the CPU engine's run allocated on the card")
+    queries, ordered = tpch_queries()
+    for name in got:
+        if name == "writes":
+            continue
+        rows_agree(got[name], exp[name], name, f"lake SF 0.01 {name}: cuda vs cpu engine",
+                   ordered)
+    ref = tpch_engine("cuda", LAKE_CROSS_SCALE)
+    lake_check(got, LAKE_CROSS_SCALE, None, card, ref, "lake SF 0.01")
+    return len(got) - 1
+
+
+def lake_phase(engine, scale, tpch_rows):
+    """The file and lakehouse connectors on the card at TPC-H `scale`: the
+    tables written to Parquet, ORC and SQLite in a temporary directory (removed
+    at the end), the 22 queries from Parquet against the tpch phase's rows,
+    ORC, a join across three catalogs, out of core over uneven row groups,
+    Iceberg writes, time travel and EXECUTE across a commit, Faker GROUP BYs;
+    the kernels' calls against their plain versions; then the same at SF
+    0.01, card vs CPU.  Returns (the path's launch counts, phase seconds)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    engine.executor.drop_scans()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lake_")
+    try:
+        secs = write_lake(tmp, scale)
+        emit({"phase": "lake", "step": "write", "scale": scale,
+              **{k: round(v, 3) for k, v in secs.items()}})
+        eng = lake_engine("cuda", tmp, int(LAKE_FAKER_ROWS * scale), "warehouse")
+        out = run_lake(eng, measure=True)
+        rows = out["rows"]
+        for line in out["lines"]:
+            emit(line)
+        for name, rec in out["ooc"].items():
+            emit({"phase": "lake", "step": "out_of_core", "query": name, "correct": True, **rec})
+        for w in rows["writes"]:
+            emit({"phase": "lake", "step": "iceberg_write", "write": w.pop("step"), **w})
+        lake_check(rows, scale, tpch_rows, eng, engine, "lake")
+        counts = out["launches"]
+        for k in KERNEL_NAMES:
+            if counts[k] < 1:
+                fail(f"lake path never launched {k}: {counts}")
+        stmts = lake_statements()
+        calls = check_main_path_calls(
+            eng, [("lake", "true", n, stmts[n], 0, ()) for n in LAKE_KERNEL_CHECKS],
+            require_all=False)
+        missing = set(KERNEL_NAMES) - {c["kernel"] for c in calls}
+        if missing:
+            fail(f"lake kernel_calls reached no call of {sorted(missing)}")
+        emit({"phase": "lake", "step": "kernel_calls", "calls": calls})
+        emit({"phase": "lake", "step": "encodes", "largest": out["encodes"]})
+        del eng
+        engine.executor.drop_scans()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        n = lake_cross_check(tmp)
+        emit({"phase": "lake", "step": "cross_scale", "scale": LAKE_CROSS_SCALE, "correct": True,
+              "statements_compared": n, "seconds": round(time.perf_counter() - t0, 3)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lake", "step": "summary", "scale": scale, "seconds": round(seconds, 1),
+          "statements": len(out["lines"]), "launches": counts})
+    torch.cuda.empty_cache()
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -3167,7 +3774,7 @@ def main(argv=None) -> int:
         r["card"] = smi_line
     torch.cuda.empty_cache()
     counts = main_path_phase(engine, cpu_engine, args.scale)
-    tpch_counts = tpch_phase(engine, cpu_engine, args.scale)
+    tpch_counts, tpch_rows = tpch_phase(engine, cpu_engine, args.scale)
     del cpu_engine
     torch.cuda.empty_cache()
     t_tpcds = time.perf_counter()
@@ -3177,11 +3784,12 @@ def main(argv=None) -> int:
     nested_counts, nested_s = nested_phase(engine, args.scale)
     spill_counts, spill_s = spill_phase(engine, args.scale)
     fastpath_counts, fastpath_s = fastpath_phase(engine, args.scale)
+    lake_counts, lake_s = lake_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
                    "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
-                   "fastpath": fastpath_counts[r["name"]]}
+                   "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -3191,7 +3799,8 @@ def main(argv=None) -> int:
     emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
           "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
-          "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1)})
+          "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
+          "lake_seconds": round(lake_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

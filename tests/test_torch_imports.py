@@ -60,6 +60,17 @@ OUT_OF_CORE_MODULES = (
 )
 
 
+# the file and lakehouse connectors, catalog files and the write-fault path,
+# and the modules they changed: each must be walked too
+FILE_CONNECTOR_MODULES = (
+    "trino_tpu_torch.connectors.parquet", "trino_tpu_torch.connectors.orc",
+    "trino_tpu_torch.connectors.iceberg", "trino_tpu_torch.connectors.faker",
+    "trino_tpu_torch.connectors.dbapi", "trino_tpu_torch.runtime.config",
+    "trino_tpu_torch.runtime.failure", "trino_tpu_torch.runtime.txn",
+    "trino_tpu_torch.exec.compiler",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -86,6 +97,8 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert set(STATEMENT_MODULES) <= walked, sorted(set(STATEMENT_MODULES) - walked)
     assert set(NESTED_MODULES) <= walked, sorted(set(NESTED_MODULES) - walked)
     assert set(OUT_OF_CORE_MODULES) <= walked, sorted(set(OUT_OF_CORE_MODULES) - walked)
+    assert set(FILE_CONNECTOR_MODULES) <= walked, sorted(
+        set(FILE_CONNECTOR_MODULES) - walked)
 
 
 def test_no_refusal_names_the_nested_value_family():
@@ -122,6 +135,41 @@ def test_no_refusal_names_the_out_of_core_slice():
     from trino_tpu_torch.exec import compiler
 
     assert compiler._ROADMAP_ITEM == {"Exchange": "A.10"}
+
+
+@pytest.mark.parametrize("kind", ["orc", "sqlite"])
+def test_distributed_split_scans_name_the_distributed_plane(kind, tmp_path):
+    """The distributed scans of tests/test_orc.py (stripes) and
+    tests/test_dbapi_connector.py (row ranges) are not ported: a plan
+    distributed over their splits is refused naming ROADMAP A.10, and the
+    time-series applier of runtime/config.py names A.11."""
+    try:  # arrow before torch (see test_torch_dec128)
+        import pyarrow  # noqa: F401
+    except ImportError:
+        pytest.skip("needs pyarrow")
+    from trino_tpu_torch.plan.distribute import distribute
+    from trino_tpu_torch.runtime.config import NodeConfig, apply_timeseries_config
+    from trino_tpu_torch.runtime.engine import Engine
+
+    if kind == "orc":
+        from trino_tpu_torch.connectors.orc import OrcConnector
+
+        conn = OrcConnector(str(tmp_path))
+    else:
+        from trino_tpu_torch.connectors.dbapi import SqliteConnector
+
+        conn = SqliteConnector(str(tmp_path / "x.db"), splits_per_table=2)
+    eng = Engine(default_catalog=kind, device="cpu")
+    eng.register_catalog(kind, conn)
+    eng.execute("create table big (k bigint)")
+    eng.execute("insert into big values " + ", ".join(f"({i})" for i in range(100)))
+    assert eng.execute("select count(*), sum(k) from big") == [(100, 4950)]
+    plan = distribute(eng.plan("select count(*), sum(k) from big"), eng.catalogs, 2,
+                      eng.session)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
+        eng.executor.execute(plan)
+    with pytest.raises(NotImplementedError, match=r"A\.11"):
+        apply_timeseries_config(NodeConfig({}))
 
 
 def test_serde_is_built_at_first_use_not_at_import():

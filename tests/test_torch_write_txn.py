@@ -1,8 +1,12 @@
 """The port's write transactions (runtime/txn.py) on a plain engine, the
-cases of tests/test_write_txn.py that need no coordinator, journal, fault
-injector or parquet: two-writer conflict arbitration with a retry, the
-exhausted conflict budget, the staging gauge on commit and abort, and the
-EXPLAIN ANALYZE `-- txn:` footer of a write."""
+cases of tests/test_write_txn.py that need no coordinator or journal:
+two-writer conflict arbitration with a retry, the exhausted conflict budget,
+the staging gauge on commit and abort, the EXPLAIN ANALYZE `-- txn:` footer
+of a write, and the engine-level fault cases (runtime/failure.py's
+FaultInjector on `engine.write_fault_injector`): a commit crash at each
+phase boundary leaves the pre-image XOR the post-image on memory, Parquet
+and Iceberg tables, a write stall delays but commits, and a full disk pool
+during staging aborts clean."""
 
 import numpy as np
 import pytest
@@ -140,3 +144,112 @@ def test_explain_analyze_write_txn_footer():
     assert "-- output rows: 5," in "\n".join(lines)
     # EXPLAIN ANALYZE really executed the write
     assert len(_table_rows(conn)) == 10
+
+
+# ------------------------------------------- engine-level fault injection
+
+
+def _connector(kind, tmp_path):
+    if kind == "memory":
+        from trino_tpu_torch.connectors.memory import MemoryConnector
+
+        return MemoryConnector()
+    if kind == "parquet":
+        from trino_tpu_torch.connectors.parquet import ParquetConnector
+
+        return ParquetConnector(str(tmp_path / "pq"))
+    from trino_tpu_torch.connectors.iceberg import IcebergConnector
+
+    return IcebergConnector(str(tmp_path / "wh"))
+
+
+@pytest.mark.parametrize("kind", ["memory", "parquet", "iceberg"])
+@pytest.mark.parametrize("phase", ["intent", "commit", "ack"])
+def test_crash_leaves_pre_xor_post_image(phase, kind, tmp_path):
+    """At every phase boundary the table is exactly the pre-image XOR the
+    post-image: staged data is invisible until the single commit point."""
+    from trino_tpu_torch.runtime.failure import FaultInjector, InjectedCommitCrash
+
+    if kind != "memory":
+        pytest.importorskip("pyarrow")
+    eng, conn = _engine(_connector(kind, tmp_path))
+    _seed(conn)
+    eng.write_fault_injector = FaultInjector()
+    pre = _table_rows(conn)
+    post = sorted(pre + [(k + 100, v) for k, v in pre])
+    eng.write_fault_injector.arm(task_id=f"{phase}:", mode="COMMIT_CRASH")
+    with pytest.raises(InjectedCommitCrash):
+        eng.execute("insert into t select k + 100, v from t")
+    [(mode, key)] = eng.write_fault_injector.fired
+    assert mode == "COMMIT_CRASH" and key.startswith(f"{phase}:")
+    assert _table_rows(conn) == (post if phase == "ack" else pre)
+    # a crash runs no abort: the pre-commit phases leave one orphaned
+    # staging namespace behind for replay / janitor reclaim
+    orphans = conn.orphaned_staging()
+    if phase in ("intent", "commit"):
+        assert len(orphans) == 1
+        assert conn.reclaim_staging(next(iter(orphans))) >= 0
+    assert conn.orphaned_staging() == {} or phase == "ack"
+    assert eng.execute("select count(*) from t") == [(len(post if phase == "ack" else pre),)]
+
+
+def test_write_stall_fault_delays_but_commits():
+    import time
+
+    from trino_tpu_torch.runtime.failure import FaultInjector
+
+    eng, conn = _engine()
+    _seed(conn)
+    eng.write_fault_injector = FaultInjector()
+    eng.write_fault_injector.arm(task_id="commit:", mode="WRITE_STALL", delay_ms=120)
+    t0 = time.monotonic()
+    eng.execute("insert into t values (99, 990)")
+    assert time.monotonic() - t0 >= 0.1
+    assert (99, 990) in _table_rows(conn)
+
+
+def test_staging_gauge_holds_a_crashed_write_until_a_later_settle():
+    """The engine-level half of tests/test_write_txn.py's
+    test_staging_gauge_drains_on_commit_and_abort: a crash skips the settle,
+    so the orphan's bytes stay in the gauge until reclaim and a later write."""
+    from trino_tpu_torch.runtime.failure import FaultInjector, InjectedCommitCrash
+    from trino_tpu_torch.runtime.txn import STAGING_BYTES
+
+    eng, conn = _engine()
+    _seed(conn)
+    base = STAGING_BYTES.value()
+    eng.execute("insert into t values (7, 70)")
+    assert STAGING_BYTES.value() == base
+    eng.write_fault_injector = FaultInjector()
+    eng.write_fault_injector.arm(task_id="commit:", mode="COMMIT_CRASH")
+    with pytest.raises(InjectedCommitCrash):
+        eng.execute("insert into t values (8, 80)")
+    assert STAGING_BYTES.value() > base
+    for txn_id in list(conn.orphaned_staging()):
+        conn.reclaim_staging(txn_id)
+    eng.execute("insert into t values (9, 90)")
+    assert STAGING_BYTES.value() >= base
+    assert (8, 80) not in _table_rows(conn) and (9, 90) in _table_rows(conn)
+
+
+def test_disk_full_during_staging_aborts_clean(tmp_path):
+    pytest.importorskip("pyarrow")
+    from trino_tpu_torch.connectors.parquet import ParquetConnector
+    from trino_tpu_torch.runtime.disk import DiskExceeded, NodeDiskPool
+    from trino_tpu_torch.runtime.txn import TXN_TOTAL
+
+    conn = ParquetConnector(str(tmp_path / "wh"))
+    _seed(conn, n=50)
+    eng, _ = _engine(conn)
+    pre = eng.execute("select k, v from t order by k")
+    conn.disk_pool = NodeDiskPool(64, name="write-stage-test")
+    conn.write_stage_timeout_s = 0.2
+    aborted0 = TXN_TOTAL.value("aborted")
+    with pytest.raises(DiskExceeded):
+        eng.execute("insert into t select k + 100, v from t")
+    assert TXN_TOTAL.value("aborted") == aborted0 + 1
+    assert conn.orphaned_staging() == {}, "abort left staging behind"
+    assert conn.disk_pool.reserved == 0, "abort leaked a disk lease"
+    conn.disk_pool = None
+    conn._invalidate("t")
+    assert eng.execute("select k, v from t order by k") == pre

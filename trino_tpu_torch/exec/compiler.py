@@ -24,8 +24,8 @@ out-of-core executor, exec/spill.py); Exchange raises NotImplementedError
 naming its ROADMAP item (the exchange across cards, A.10).
 
 Scans can be sliced and narrowed: `split = (part, num_parts)` scans one
-slice of every table (padded to ceil(total / num_parts) rows with
-`pad_splits`, so all slices share one set of learned capacities), and
+slice of every table (padded with `pad_splits` to the rows of the largest
+slice, `_slice_pad`, so all slices share one set of learned capacities), and
 `scan_filters` (exec/dynfilter.py) drop rows outside a join's build-side key
 domain on the host, before they are uploaded.  Prepared-statement parameters
 (`execute(..., params=...)`) are bound for the run through
@@ -194,9 +194,7 @@ class LocalExecutor:
                 # keeps the shapes (and learned capacities) few
                 pad_to = _pow2(len(next(iter(data.values()))) if data else 0)
             elif self.pad_splits and num_parts > 1:
-                total = conn.estimated_row_count(table)
-                if total:
-                    pad_to = max(1, -(-int(total) // num_parts))
+                pad_to = _slice_pad(conn, table, num_parts)
             for c in missing:
                 arr = data[c]
                 n_live = len(arr)
@@ -232,6 +230,11 @@ class LocalExecutor:
             s for i, s in enumerate(conn.get_splits(table, num_parts))
             if num_parts == 1 or i % num_parts == part
         ]
+        if not splits:
+            # a connector that makes fewer splits than parts (a DB-API table
+            # of one split) leaves the other slices empty
+            schema = conn.table_schema(table)
+            return {c: _empty_column(schema.type_of(c)) for c in missing}
         data = conn.read_split(splits[0], want)
         for sp in splits[1:]:
             more = conn.read_split(sp, want)
@@ -461,6 +464,28 @@ class LocalExecutor:
         size_of(0, nodes[0])
         size_of = None  # the recursive closure holds `inputs`: cut the cycle
         return caps
+
+
+def _slice_pad(conn, table: str, num_parts: int) -> int:
+    """Rows of the largest of `num_parts` slices of `table`: an even share of
+    its rows, or where the connector has a unit plan (file-backed: whole
+    row groups dealt round-robin, connectors/parquet.py scan_unit_plan) as
+    many of its fattest unit as the fullest slice gets, the bound the
+    reference's split planner takes (runtime/splits.py scan_split_plan).
+    Slices of other uneven connectors (ORC stripes, Iceberg files) that come
+    out larger keep their own size and re-learn capacities."""
+    total = int(conn.estimated_row_count(table) or 0)
+    pad = -(-total // num_parts)
+    unit_plan = getattr(conn, "scan_unit_plan", None)
+    plan = unit_plan(table) if unit_plan is not None else None
+    if plan:
+        n_units, max_unit_rows = plan
+        pad = max(pad, -(-n_units // num_parts) * max_unit_rows)
+    return max(1, pad)
+
+
+def _empty_column(t) -> np.ndarray:
+    return np.empty((0,), dtype=object if (t.is_string or t.is_dict_object) else t.np_dtype)
 
 
 def _pad_column(arr, t, pad_to: int):

@@ -24,7 +24,7 @@ template, parameters bound per run) and substitutes and re-plans only where
 that path declines.
 
 Not here yet: the result cache (ROADMAP A.11), distributed EXPLAIN ANALYZE
-(A.10), the write journal and fault injection (A.11).
+(A.10), the write journal (A.11).
 """
 
 from __future__ import annotations
@@ -107,7 +107,10 @@ class Engine:
         self.access_control = AllowAllAccessControl()
         self.user = "user"
         # write-transaction plane (runtime/txn.py): per-thread write sequence
-        # of the transaction ids; no journal and no fault injector (A.11)
+        # of the transaction ids; a FaultInjector (runtime/failure.py) set
+        # here fires the write faults; no journal yet (A.11)
+        self.txn_journal = None
+        self.write_fault_injector = None
         self._txn_local = threading.local()
         self._last_txn_info = None  # EXPLAIN ANALYZE `-- txn:` footer
         # the out-of-core executor of the last query that spilled (its

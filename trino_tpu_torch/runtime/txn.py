@@ -17,10 +17,11 @@ landed and replays as a no-op; absent means the intent aborts and its
 staging is reclaimed.  Concurrent writers are arbitrated by the CAS into a
 typed WRITE_CONFLICT with bounded recompute-and-retry.
 
-A copy of the JAX package's module.  The port's engine has no journal and
-no fault injector (no `txn_journal` / `write_fault_injector`, as on the
-reference's plain local engine); both planes port with the control plane
-(ROADMAP A.11), and with them the simulated commit crash.
+A copy of the JAX package's module.  The engine's `write_fault_injector`
+(runtime/failure.py FaultInjector) fires COMMIT_CRASH / WRITE_STALL at the
+phase boundaries, and an injected crash leaves staging and table as a real
+kill would.  `txn_journal` stays None: the journal ports with the control
+plane (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -196,6 +197,8 @@ def run_write(engine, catalog: str, table: str, operation: str,
     recomputed against the new snapshot, bounded by the
     `write_conflict_retries` session property.
     """
+    from .failure import InjectedCommitCrash
+
     retries = 2
     session = getattr(engine, "session", None)
     if session is not None:
@@ -232,6 +235,12 @@ def run_write(engine, catalog: str, table: str, operation: str,
             _fr.record("txn_conflict", txn_id=txn.txn_id, table=table,
                        attempt=attempts)
             continue
+        except InjectedCommitCrash:
+            # simulated hard crash: no abort, no cleanup — the journaled
+            # intent (and possibly the connector commit marker) is all a
+            # restarted coordinator gets, exactly like a real kill
+            engine._last_txn_info = txn.info()
+            raise
         except BaseException:
             txn.abort(reason="statement failed")
             engine._last_txn_info = txn.info()
