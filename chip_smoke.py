@@ -69,7 +69,16 @@ encode, upload and execute), Q1 / Q6 over ORC, a join across the three
 formats, Q1 and Q18 out of core over uneven row groups, Iceberg writes with
 time travel, rollback and an EXECUTE across a commit, and GROUP BYs over an
 8,388,608-row Faker table, each against its reference; then the same at SF
-0.01, card vs CPU.
+0.01, card vs CPU.  The `distributed` phase runs the 22 queries and the TopN
+through `Engine(distributed=True, devices=["cuda:0"] * 4)` — every fragment
+of the distributed plan as four tasks on the card, the exchanges in device
+memory — each against the `tpch` phase's rows (Q3 and Q18 also with
+data_plane_kernels = false), checks that a warm run uploads nothing and
+reads no exchanged column to the host, holds the kernels' calls of Q18 and
+the TopN against their plain versions, and at SF 0.01 holds EXPLAIN
+ANALYZE row counts and the distributed test files' statements, card
+against `Engine(device="cpu", distributed=True)`; on a machine with more
+cards, Q3 and Q18 once more over every card.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -1515,10 +1524,13 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
                        ordered, agg_tols)
         rows_agree(rows, cpu_rows, name, f"{what} cuda vs cpu engine", ordered, agg_tols,
                    hll_ref=cpu_rows)
+        timing = statement_timing(engine, sql, runs)
+        if phase == "tpch" and variant == "tpch":
+            TPCH_WARM_MS[name] = timing["warm_ms"]  # the distributed phase's baseline
         emit({
             "phase": phase, "query": name, "variant": variant,
             "data_plane_kernels": flag, "rows": len(cpu_rows), "correct": True,
-            "cold_ms": cold_ms, **statement_timing(engine, sql, runs), "cpu_engine_ms": cpu_ms,
+            "cold_ms": cold_ms, **timing, "cpu_engine_ms": cpu_ms,
             "cpu_rows_of": cpu_variant,
             "first_run_retries": retries,
             "launches": launches[what],
@@ -3664,6 +3676,236 @@ def lake_phase(engine, scale, tpch_rows):
     return counts, seconds
 
 
+# ------------------------------------------------------- distributed plane
+
+DIST_WORKERS = 4  # Engine(distributed=True, devices=["cuda:0"] * 4): four workers, one card
+DIST_KERNELS = ("segment_reduce", "hash_build", "hash_probe", "radix_select")  # must launch
+DIST_OPERATORS = ("q03", "q18")  # again with data_plane_kernels = false
+DIST_CROSS_SCALE = 0.01
+DIST_CASES_FILE = Path(__file__).resolve().parent / "tests" / "distributed_cases.py"
+TPCH_WARM_MS: dict = {}  # query -> the tpch phase's warm_ms (filled by measure_lines)
+
+
+def dist_engine(device, scale, devices, catalog: str = "tpch", conn=None):
+    """A distributed engine over `devices` (None: every visible card) with
+    TPC-H at `scale`, or `conn` as `catalog`."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(default_catalog=catalog, device=device, distributed=True, devices=devices)
+    eng.register_catalog(catalog, conn if conn is not None else TpchConnector(scale))
+    return eng
+
+
+def distributed_cases():
+    """tests/distributed_cases.py (the distributed test files' statements and
+    tables; it imports neither JAX nor the tests package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("distributed_cases", DIST_CASES_FILE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def exchange_host_reads(engine, sql) -> tuple:
+    """One run of `sql` with every exchange of the distributed executor
+    watched: (rows, [(op, elements)] of each read from the card into host
+    memory made inside an exchange — a host value, a numpy array, or a copy
+    to the CPU)."""
+    from torch.overrides import TorchFunctionMode
+
+    import trino_tpu_torch.exec.spmd as spmd
+
+    reads, inside = [], [0]
+    host_ops = {"tolist", "numpy", "item", "cpu", "__array__", "__int__", "__float__",
+                "__bool__", "__index__"}
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = getattr(func, "__name__", "")
+            if inside[0] and args and isinstance(args[0], torch.Tensor):
+                src = args[0]
+                targets = [str(a) for a in list(args[1:]) + list(kwargs.values())]
+                if src.is_cuda and (name in host_ops or (
+                        name == "to" and any(t.startswith("cpu") for t in targets))):
+                    reads.append((name, src.numel()))
+                elif (name == "copy_" and not src.is_cuda and len(args) > 1
+                      and isinstance(args[1], torch.Tensor) and args[1].is_cuda):
+                    reads.append((name, args[1].numel()))
+            return func(*args, **kwargs)
+
+    def watched(fn):
+        def run(*a, **k):
+            inside[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                inside[0] -= 1
+        return run
+
+    saved = spmd.repartition, spmd.gather_all
+    spmd.repartition, spmd.gather_all = watched(saved[0]), watched(saved[1])
+    try:
+        with Watch():
+            rows = engine.query(sql)
+    finally:
+        spmd.repartition, spmd.gather_all = saved
+    return rows, reads
+
+
+def distributed_cross_check() -> dict:
+    """At SF 0.01, a distributed card engine (four workers on one card)
+    against Engine(device="cpu", distributed=True) over four CPU workers:
+    EXPLAIN ANALYZE row counts of Q3 and of the test files' four-exchange
+    statement, then every statement of the distributed test files
+    (tests/distributed_cases.py), rows compared and held against the test's
+    expected rows where it states them."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.plan.nodes import format_plan
+
+    cases = distributed_cases()
+    queries, ordered = tpch_queries()
+    dev0 = torch.device("cuda", 0)
+    card = dist_engine("cuda", DIST_CROSS_SCALE, [dev0] * DIST_WORKERS)
+    host = dist_engine("cpu", DIST_CROSS_SCALE, ["cpu"] * DIST_WORKERS)
+    out = {}
+
+    def same_counts(a, b, sql, what):
+        pa, pb = a.plan(sql), b.plan(sql)
+        if format_plan(pa) != format_plan(pb):
+            fail(f"distributed {what}: the card's distributed plan differs from the CPU's")
+        _, got = a.executor.explain_analyze(pa)
+        _, want = b.executor.explain_analyze(pb)
+        if got != want:
+            fail(f"distributed {what}: EXPLAIN ANALYZE rows {got} != the CPU's {want}")
+        return {nid: s["rows"] for nid, s in got.items()}
+
+    out["q03_explain_rows"] = same_counts(card, host, queries["q03"], "q03 SF 0.01")
+    text = [r[0] for r in card.execute("explain analyze " + queries["q03"])]
+    if not text[0].startswith("TopN") or "[rows: " not in text[0]:
+        fail(f"distributed EXPLAIN ANALYZE q03 renders {text[:2]}")
+    for name, (sql, _oracle_sql) in cases.tpch_cases().items():
+        rows_agree(card.query(sql), host.query(sql), name,
+                   f"distributed SF 0.01 {name}: cuda vs cpu", {name: False})
+    mem_card = dist_engine("cuda", None, [dev0] * DIST_WORKERS, "memory", MemoryConnector())
+    mem_host = dist_engine("cpu", None, ["cpu"] * DIST_WORKERS, "memory", MemoryConnector())
+    for name, (setup, sql, want) in cases.MEMORY_CASES.items():
+        for stmt in setup:
+            mem_card.execute(stmt)
+            mem_host.execute(stmt)
+        got = mem_card.execute(sql)
+        rows_match(got, mem_host.execute(sql), f"distributed {name}: cuda vs cpu")
+        rows_match(got, want, f"distributed {name}: cuda vs the test's rows")
+    tables = [dist_engine(dev, None, [dev] * DIST_WORKERS, "mem",
+                          cases.explain_tables("trino_tpu_torch")) for dev in (dev0, "cpu")]
+    out["explain_rows"] = same_counts(*tables, cases.EXPLAIN_SQL, "four-exchange statement")
+    buckets = [dist_engine(dev, None, [dev] * DIST_WORKERS, "mem",
+                           cases.bucketed_tables("trino_tpu_torch", cases.bucket_inserts()))
+               for dev in (dev0, "cpu")]
+    rows_match(unordered(buckets[0].query(cases.BUCKET_GROUP_BY)),
+               unordered(buckets[1].query(cases.BUCKET_GROUP_BY)),
+               "distributed bucketed GROUP BY: cuda vs cpu")
+    out["statements"] = len(cases.tpch_cases()) + len(cases.MEMORY_CASES) + 2
+    return out
+
+
+def distributed_phase(engine, scale, tpch_rows):
+    """The distributed plane on the card at TPC-H `scale`: the 22 queries
+    and the ten most expensive line items (TOPN) through
+    Engine(distributed=True, devices=["cuda:0"] * 4), each against the tpch
+    phase's rows (TOPN: the TPC-H engine's), with warm_ms beside the tpch
+    phase's, cold_ms and
+    peak device bytes from a cold scan cache, fragments, bytes moved per
+    exchange kind, idle share and launches; Q3 and Q18 again with kernels
+    off; a warm run that uploads nothing and reads no exchanged column to
+    the host; the kernels' calls of Q18 against their plain versions; then
+    SF 0.01 card vs CPU (distributed_cross_check) and, where the machine
+    has more than one card, Q3 and Q18 over every card.  Returns (the
+    path's launch counts, phase seconds)."""
+    t_phase = time.perf_counter()
+    queries, ordered = tpch_queries()
+    # the ten most expensive line items: a partial TopN over every task's
+    # 1.5 M-row shard (radix select), a gather, the final TopN
+    want = dict(tpch_rows, topn=engine.query(TOPN))
+    engine.executor.drop_scans()
+    gc.collect()
+    torch.cuda.empty_cache()
+    queries = dict(queries, topn=TOPN)
+    dev0 = torch.device("cuda", 0)
+    eng = dist_engine("cuda", scale, [dev0] * DIST_WORKERS)
+    path = [(name, "true") for name in sorted(queries)]
+    path += [(name, "false") for name in DIST_OPERATORS]
+    # every count to 0 just before the path, read just after
+    reset_kernel_counts()
+    for name, flag in path:
+        sql = queries[name]
+        eng.execute(f"set session data_plane_kernels = {flag}")
+        before = kernel_counts()
+        rows, peak, cold = peak_run(eng, sql)
+        after = kernel_counts()
+        ex = eng.executor
+        moved, fragments = dict(ex.last_exchange_bytes), ex.fragments
+        what = f"distributed {name} (data_plane_kernels = {flag})"
+        rows_agree(rows, want[name], name, f"{what} vs tpch", ordered)
+        warm = warm_median(eng, sql, 1)
+        if ex.last_upload_ms:
+            fail(f"{what}: a warm run uploaded ({ex.last_upload_ms} ms)")
+        busy = traced_busy(lambda: eng.query(sql), 1)
+        idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm
+        emit({"phase": "distributed", "query": name, "workers": DIST_WORKERS,
+              "data_plane_kernels": flag, "rows": len(rows), "correct": True,
+              "warm_ms": warm, "warm_ms_tpch": TPCH_WARM_MS.get(name) if flag == "true" else None,
+              "cold_ms": cold, "peak_bytes": peak, "fragments": fragments,
+              "exchange_bytes": moved, "device_idle_share": idle, **busy,
+              "launches": {k: after[k] - before[k] for k in KERNEL_NAMES}})
+    eng.execute("set session data_plane_kernels = true")
+    counts = kernel_counts()
+    for k in DIST_KERNELS:
+        if counts[k] < 1:
+            fail(f"distributed path never launched {k}: {counts}")
+    # a warm Q3: nothing uploaded, no exchanged column read to the host
+    eng.query(queries["q03"])  # its columns back on the card after the runs above
+    rows, reads = exchange_host_reads(eng, queries["q03"])
+    rows_agree(rows, tpch_rows["q03"], "q03", "distributed q03 (watched) vs tpch", ordered)
+    bad = [r for r in reads if r[0] != "tolist" or r[1] > DIST_WORKERS * DIST_WORKERS]
+    if bad or not reads or eng.executor.last_upload_ms:
+        fail(f"distributed q03: exchange host reads {reads}, upload "
+             f"{eng.executor.last_upload_ms} ms")
+    emit({"phase": "distributed", "step": "warm_q03_host_reads", "exchange_host_reads": reads,
+          "upload_ms": eng.executor.last_upload_ms})
+    calls = check_main_path_calls(
+        eng, [("distributed", "true", n, queries[n], 0, ()) for n in ("q18", "topn")],
+        require_all=False)
+    missing = set(DIST_KERNELS) - {c["kernel"] for c in calls}
+    if missing:
+        fail(f"distributed kernel_calls reached no call of {sorted(missing)}")
+    emit({"phase": "distributed", "step": "kernel_calls", "calls": calls})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cross = distributed_cross_check()
+    emit({"phase": "distributed", "step": "cross_scale", "scale": DIST_CROSS_SCALE,
+          "correct": True, **cross, "seconds": round(time.perf_counter() - t0, 3)})
+    if torch.cuda.device_count() > 1:
+        every = dist_engine("cuda", scale, None)
+        for name in DIST_OPERATORS:
+            rows_agree(every.query(queries[name]), tpch_rows[name], name,
+                       f"distributed {name} over {torch.cuda.device_count()} cards vs tpch",
+                       ordered)
+        emit({"phase": "distributed", "step": "every_card", "cards": torch.cuda.device_count(),
+              "queries": list(DIST_OPERATORS), "correct": True})
+        del every
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "step": "summary", "scale": scale, "seconds": round(seconds, 1),
+          "statements": len(path), "launches": counts})
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -3785,11 +4027,13 @@ def main(argv=None) -> int:
     spill_counts, spill_s = spill_phase(engine, args.scale)
     fastpath_counts, fastpath_s = fastpath_phase(engine, args.scale)
     lake_counts, lake_s = lake_phase(engine, args.scale, tpch_rows)
+    dist_counts, dist_s = distributed_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
                    "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
-                   "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]]}
+                   "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]],
+                   "distributed": dist_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -3800,7 +4044,7 @@ def main(argv=None) -> int:
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
           "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
           "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
-          "lake_seconds": round(lake_s, 1)})
+          "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

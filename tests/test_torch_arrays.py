@@ -146,8 +146,8 @@ CASES = {
     "unnest_aggregate": (
         "select part, count(*) as c from tg, unnest(split(s, ',')) as u(part) "
         "group by part order by part", [("x", 3), ("y", 2), ("z", 1)]),
-    # tests/test_arrays.py runs this one distributed (ROADMAP A.10): here the
-    # same statement single-process
+    # tests/test_arrays.py runs this one distributed (ported in
+    # tests/test_torch_distributed.py): here the same statement single-process
     "unnest_group_by_four_rows": (
         "select part, count(*) as c from td, unnest(split(s, ',')) as u(part) "
         "group by part order by part",
@@ -187,7 +187,7 @@ def test_sequence_limit_is_cheap(engines):
 
 def test_array_columns_round_trip_through_a_page():
     """An ARRAY column written to the card and read back (tests/test_arrays.py
-    sends it over the wire format, ROADMAP A.10; here through the page)."""
+    sends it over the wire format; here through the page)."""
     from trino_tpu_torch.data.page import Column, Page
     from trino_tpu_torch.data.types import ArrayType, BIGINT
 

@@ -130,6 +130,28 @@ def test_plan_cache_hit_events(engine):
     assert PLAN_CACHE_EVENTS.value("hit") - h0 == 2
 
 
+def test_plan_cache_key_takes_the_sessions_kernel_policy():
+    """The plan-cache key holds the kernel policy of the EXECUTing session,
+    not the process-global one another engine's statement left: after a
+    statement elsewhere ran with kernels off, the second EXECUTE still hits
+    (it missed, and re-planned, before the fast path applied the session's
+    policy ahead of its lookup)."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(default_catalog="mem", device="cpu")
+    eng.register_catalog("mem", MemoryConnector())
+    eng.execute("CREATE TABLE t (k bigint, v double)")
+    eng.execute("INSERT INTO t VALUES (1, 1.0), (2, 2.0), (3, 3.0)")
+    eng.execute("PREPARE p FROM select count(*), sum(v) from t where k >= ?")
+    kernels.set_policy(kernels.KernelPolicy(enabled=False))  # another session's
+    assert eng.execute("EXECUTE p USING 2") == [(2, 5.0)]
+    assert eng.execute("EXECUTE p USING 1") == [(3, 6.0)]
+    assert eng.fastpath().last_info.cache == "hit"
+    assert eng.fastpath().plans_made == 1
+
+
 def test_injection_quote_bearing_string_param(engine):
     """A quote-bearing varchar parameter stays DATA (a textual substitution
     would splice it into the predicate)."""

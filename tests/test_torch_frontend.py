@@ -62,15 +62,17 @@ def test_unported_statements_and_patterns_name_their_roadmap_item(planners):
     # statements run since A.9a (tests/test_torch_statements.py), the
     # prepared-statement fast path's runtime parameters since A.9b (they
     # named that item until then: a Param evaluates inside a binding
-    # context); what is left of the storage plane names its item: bucketed
-    # memory tables
+    # context); bucketed memory tables named the distributed plane (A.10)
+    # until it was ported: they read one split per bucket
     from trino_tpu_torch.ops.expr import param_context
 
     with param_context((np.int64(7),)):
         v = eval_expr(Param(0, BIGINT), [], 3, torch.device("cpu"))
     assert v.data.tolist() == [7, 7, 7] and v.valid is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        MemoryConnector().create_table("t", [ColumnSchema("a", BIGINT)], bucketed_by=["a"])
+    mem = MemoryConnector()
+    mem.create_table("t", [ColumnSchema("a", BIGINT)], bucketed_by=["a"])
+    assert mem.table_partitioning("t") == (("a",), 8)
+    assert len(mem.get_splits("t", 2)) == 8
     # MATCH_RECOGNIZE named ROADMAP A.8b until its operator was ported: its
     # pattern now compiles to the reference's VM program
     from trino_tpu.ops.matchrec import compile_pattern as ref_compile

@@ -121,8 +121,8 @@ def test_no_refusal_names_the_nested_value_family():
 
 def test_no_refusal_names_the_out_of_core_slice():
     """Nothing in the package raises naming ROADMAP A.9b any more: RemoteSource
-    leaves run, ir.Param evaluates, EXECUTE takes the fast path.  Only the
-    exchange across cards (A.10) is refused by the executor."""
+    leaves run, ir.Param evaluates, EXECUTE takes the fast path.  No plan
+    node is left unported (the Exchange runs between tasks, exec/spmd.py)."""
     left = []
     for base, _dirs, files in os.walk(_PKG):
         for f in files:
@@ -134,21 +134,30 @@ def test_no_refusal_names_the_out_of_core_slice():
     assert left == []
     from trino_tpu_torch.exec import compiler
 
-    assert compiler._ROADMAP_ITEM == {"Exchange": "A.10"}
+    assert compiler._ROADMAP_ITEM == {}
 
 
 @pytest.mark.parametrize("kind", ["orc", "sqlite"])
-def test_distributed_split_scans_name_the_distributed_plane(kind, tmp_path):
-    """The distributed scans of tests/test_orc.py (stripes) and
-    tests/test_dbapi_connector.py (row ranges) are not ported: a plan
-    distributed over their splits is refused naming ROADMAP A.10, and the
-    time-series applier of runtime/config.py names A.11."""
+def test_no_refusal_names_the_distributed_plane(kind, tmp_path):
+    """Nothing in the package raises or documents ROADMAP A.10 any more: a
+    plan distributed over ORC stripes or DB-API row ranges runs through the
+    distributed executor (tests/test_torch_distributed.py holds the ports of
+    the reference's cases), and LocalExecutor, handed an Exchange, names
+    the executors of distributed plans."""
     try:  # arrow before torch (see test_torch_dec128)
         import pyarrow  # noqa: F401
     except ImportError:
         pytest.skip("needs pyarrow")
+    left = []
+    for base, _dirs, files in os.walk(_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(base, f)
+                for i, line in enumerate(open(path), 1):
+                    if "A.10" in line:
+                        left.append(f"{os.path.relpath(path, _ROOT)}:{i}")
+    assert left == []
     from trino_tpu_torch.plan.distribute import distribute
-    from trino_tpu_torch.runtime.config import NodeConfig, apply_timeseries_config
     from trino_tpu_torch.runtime.engine import Engine
 
     if kind == "orc":
@@ -166,8 +175,18 @@ def test_distributed_split_scans_name_the_distributed_plane(kind, tmp_path):
     assert eng.execute("select count(*), sum(k) from big") == [(100, 4950)]
     plan = distribute(eng.plan("select count(*), sum(k) from big"), eng.catalogs, 2,
                       eng.session)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
+    with pytest.raises(NotImplementedError, match=r"exec/spmd\.py.*exec/spill\.py"):
         eng.executor.execute(plan)
+    dist = Engine(default_catalog=kind, device="cpu", distributed=True, devices=["cpu"] * 2)
+    dist.register_catalog(kind, conn)
+    assert dist.execute("select count(*), sum(k) from big") == [(100, 4950)]
+
+
+def test_timeseries_config_names_the_control_plane():
+    """The time-series applier of runtime/config.py waits for the control
+    plane: it raises naming ROADMAP A.11."""
+    from trino_tpu_torch.runtime.config import NodeConfig, apply_timeseries_config
+
     with pytest.raises(NotImplementedError, match=r"A\.11"):
         apply_timeseries_config(NodeConfig({}))
 
@@ -235,5 +254,9 @@ def test_cuda_entry_points_raise_without_a_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine()  # the default device is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(distributed=True)  # every visible card: there is none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(distributed=True, devices=["cuda:0"] * 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Column.from_numpy(BIGINT, np.arange(3))

@@ -127,7 +127,8 @@ CASES = {
     "listagg": (
         "select g, listagg(s, '|') as l from t where k < 6 group by g order by g",
         [("g0", "s0|s3"), ("g1", "s1|s0"), ("g2", "s2|s1")]),
-    # tests/test_lambdas.py gathers this one distributed (ROADMAP A.10)
+    # tests/test_lambdas.py gathers this one distributed (ported in
+    # tests/test_torch_distributed.py)
     "array_agg_over_four_keys": (
         "select k, array_sort(array_agg(v)) as a from d group by k order by k",
         [(0, [0, 4, 8, 12]), (1, [1, 5, 9, 13]), (2, [2, 6, 10, 14]), (3, [3, 7, 11, 15])]),

@@ -2,9 +2,13 @@
 fixture connector) and the /dev/null blackhole connector (reference:
 plugin/trino-blackhole — write benchmarks, scheduling tests).
 
-A copy of the JAX package's module.  Bucketed tables (scans born
-hash-partitioned for the distributed executor) need the wire format's
-partition hash and port with the distributed plane (ROADMAP A.10)."""
+A copy of the JAX package's module.  A bucketed table (`bucketed_by`,
+`bucket_count`) reads one split per bucket, its rows assigned by the wire
+format's partition hash (runtime/wire.py `bucket_assignments`), so that
+`distribute(..., connector_buckets=True)` can take its scans as born
+hash-partitioned.  Only a worker runtime that routes splits to tasks by
+bucket honours that (the coordinator, ROADMAP A.11); the distributed and
+out-of-core executors split scans by row range and plan without it."""
 
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ class MemoryConnector(Connector):
         # other tables survive a write (the connector-wide counter stays
         # the write-conflict token)
         self._table_gen: dict[str, int] = {}
+        # table -> (bucket columns, bucket count) for bucketed tables
+        self._bucketing: dict[str, tuple[tuple[str, ...], int]] = {}
+        # (table, generation) -> per-bucket row-index arrays
+        self._bucket_rows: dict = {}
 
     def _bump(self, *tables: str) -> None:
         self.generation += 1
@@ -57,11 +65,6 @@ class MemoryConnector(Connector):
         bucketed_by: Optional[Sequence[str]] = None,
         bucket_count: int = 0,
     ) -> None:
-        if bucketed_by:
-            raise NotImplementedError(
-                "bucketed memory tables are not ported to trino_tpu_torch yet "
-                "(ROADMAP A.10: the distributed plane)"
-            )
         if name in self._tables:
             raise ValueError(f"table already exists: {name}")
         self._tables[name] = TableSchema(name, tuple(columns))
@@ -69,12 +72,23 @@ class MemoryConnector(Connector):
             c.name: np.empty((0,), dtype=object if c.type.is_string else c.type.np_dtype)
             for c in columns
         }
+        if bucketed_by:
+            # bucketing by the ENGINE's partition hash: scans of this table
+            # are born hash-partitioned, so joins/aggs on the bucket keys
+            # skip the repartition exchange (reference: trino-hive bucketed
+            # tables via ConnectorNodePartitioningProvider)
+            self._bucketing[name] = (tuple(bucketed_by), int(bucket_count) or 8)
         self._bump(name)
+
+    def table_partitioning(self, table: str):
+        return self._bucketing.get(table)
 
     def drop_table(self, name: str) -> None:
         self._tables.pop(name)
         self._data.pop(name)
         self._table_gen.pop(name, None)
+        self._bucketing.pop(name, None)
+        self._bucket_rows = {k: v for k, v in self._bucket_rows.items() if k[0] != name}
         self._bump()
 
     def truncate(self, name: str) -> None:
@@ -104,10 +118,36 @@ class MemoryConnector(Connector):
 
     # ---- reads -------------------------------------------------------------
     def get_splits(self, table: str, desired_parts: int) -> list[Split]:
+        bp = self._bucketing.get(table)
+        if bp is not None:
+            # one split per bucket, regardless of desired parallelism: the
+            # scheduler's round-robin (split i -> task i mod W) keeps the
+            # hash alignment whenever bucket_count % W == 0
+            return [Split("memory", table, b, bp[1]) for b in range(bp[1])]
         return [Split("memory", table, p, desired_parts) for p in range(desired_parts)]
+
+    def _bucket_index(self, table: str) -> list:
+        """Row indices of each bucket of `table`, cached per write generation
+        of the table."""
+        key = (table, self.table_generation(table))
+        rows = self._bucket_rows.get(key)
+        if rows is None:
+            from ..runtime.wire import bucket_assignments
+
+            cols, nb = self._bucketing[table]
+            data = self._data[table]
+            b = bucket_assignments({c: data[c] for c in cols}, cols, nb)
+            rows = [np.nonzero(b == i)[0] for i in range(nb)]
+            # only this table's stale generations go
+            self._bucket_rows = {k: v for k, v in self._bucket_rows.items() if k[0] != table}
+            self._bucket_rows[key] = rows
+        return rows
 
     def read_split(self, split: Split, columns: Sequence[str]) -> dict[str, np.ndarray]:
         data = self._data[split.table]
+        if split.table in self._bucketing:
+            ix = self._bucket_index(split.table)[split.part]
+            return {c: data[c][ix] for c in columns}
         n = len(next(iter(data.values()))) if data else 0
         lo = split.part * n // split.num_parts
         hi = (split.part + 1) * n // split.num_parts

@@ -20,8 +20,10 @@ Distinct, Join (every kind, cross joins against a single row included),
 Concat (UNION ALL, and the union under INTERSECT / EXCEPT / UNION), Sort,
 TopN, Limit, EnforceSingleRow, Window, Unnest, MatchRecognize and
 RemoteSource (a plan fragment's input, handed in as a page by the
-out-of-core executor, exec/spill.py); Exchange raises NotImplementedError
-naming its ROADMAP item (the exchange across cards, A.10).
+executor of a distributed plan).  An Exchange runs between the tasks of a
+distributed plan's fragments, never inside one: exec/spmd.py (exchanges in
+device memory) and exec/spill.py (out of core, exchanges on disk) cut the
+plan at its exchanges, and LocalExecutor refuses one it is handed.
 
 Scans can be sliced and narrowed: `split = (part, num_parts)` scans one
 slice of every table (padded with `pad_splits` to the rows of the largest
@@ -67,7 +69,8 @@ from ..plan.nodes import (
 
 __all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
 
-_ROADMAP_ITEM = {"Exchange": "A.10"}
+# plan node -> the ROADMAP item that ports it (none is left unported)
+_ROADMAP_ITEM: dict[str, str] = {}
 
 
 @dataclass
@@ -288,10 +291,9 @@ class LocalExecutor:
         values of a prepared statement, one per ir.Param index; every
         binding of one plan shares its learned capacities
         (runtime/fastpath.py)."""
-        nodes = _node_ids(plan)
-        inputs: dict[str, Page] = {}
         self.last_upload_ms = 0.0
-        for i, n in nodes.items():
+        inputs: dict[str, Page] = {}
+        for i, n in _node_ids(plan).items():
             if isinstance(n, TableScan):
                 inputs[str(i)] = self.table_page(
                     n.catalog, n.table, n.column_names, n.output_types, scan_id=i
@@ -300,6 +302,21 @@ class LocalExecutor:
                 if remote_pages is None or n.fragment_id not in remote_pages:
                     raise ValueError(f"no input page for fragment {n.fragment_id}")
                 inputs[str(i)] = remote_pages[n.fragment_id]
+        return self.run_tasks(plan, [(inputs, self.device)], params)[0]
+
+    def run_tasks(
+        self, plan: PlanNode, tasks: list, params: tuple = (), node_rows: Optional[dict] = None,
+    ) -> list[Page]:
+        """Run `plan` once per task, `tasks` a list of (inputs, device): one
+        task on the CPU or one card, or the D tasks of a distributed
+        fragment (exec/spmd.py), the first task's inputs sizing the first
+        capacities.  The tasks share one set of capacities: each run's
+        `required` sizes are max-reduced over the tasks before the retry
+        loop reads them, so every task re-runs at the tier the fullest one
+        needs.  Returns the tasks' output pages.  `node_rows`, when given, is filled with each node's
+        live rows summed over the tasks (the run that returned; unfused, so
+        every node is counted)."""
+        nodes = _node_ids(plan)
         gens = tuple(
             _generation(self.catalogs.get(n.catalog), n.table)
             for n in nodes.values() if isinstance(n, TableScan)
@@ -308,7 +325,7 @@ class LocalExecutor:
         if learned is not None and learned[0] == gens:
             _, caps, sort_joins = learned
         else:
-            caps, sort_joins = self._initial_caps(nodes, inputs), frozenset()
+            caps, sort_joins = self._initial_caps(nodes, tasks[0][0]), frozenset()
         # capacity bucketing: every cap lands on a pow2 tier.  Also snapshots
         # the dict: the retry loop below mutates caps in place, and learned
         # dicts must not alias it.
@@ -317,9 +334,26 @@ class LocalExecutor:
         # nodes that overflowed, or {"sort_joins": ids} for failed hash joins
         self.last_retries = []
         for _ in range(12):  # capacity-retry loop
-            with param_context(params):
-                out_page, required = _trace_plan(plan, inputs, caps, sort_joins, self.device)
-            required = _fetch_required(required)  # ONE device->host transfer
+            outs, required, counted = [], {}, []
+            for inputs, device in tasks:
+                hook = None
+                if node_rows is not None:
+                    live_of: dict[int, torch.Tensor] = {}
+                    counted.append(live_of)
+
+                    def hook(nid, node, stage, _into=live_of):
+                        _into[nid] = stage.live.sum(dtype=torch.int64)
+
+                with param_context(params):
+                    out_page, req = _trace_plan(
+                        plan, inputs, caps, sort_joins, device,
+                        node_hook=hook, fuse=node_rows is None,
+                    )
+                outs.append(out_page)
+                # ONE device->host transfer per task
+                for key, val in _fetch_required(req).items():
+                    required[key] = max(val, required.get(key, val))
+                del req, hook
             self.last_required = required
             for key, val in required.items():
                 if key < 0 and val > 1:
@@ -357,7 +391,13 @@ class LocalExecutor:
                     if tight < caps[nid]:
                         caps[nid] = tight
                 self._learned_caps[plan] = (gens, caps, sort_joins)
-                return out_page
+                if node_rows is not None:
+                    node_rows.clear()
+                    for live_of in counted:
+                        for nid, n in _fetch_required(live_of).items():
+                            node_rows[nid] = node_rows.get(nid, 0) + n
+                return outs
+            del outs
             self.last_retries.append(overflow)
             for nid, req in overflow.items():
                 caps[nid] = _pow2(max(req, caps[nid] * 2))
@@ -567,7 +607,7 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
 
 def _trace_plan(
     plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
-    sort_joins: frozenset = frozenset(), device="cuda", node_hook=None,
+    sort_joins: frozenset = frozenset(), device="cuda", node_hook=None, fuse: bool = True,
 ):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
@@ -575,7 +615,9 @@ def _trace_plan(
     EnforceSingleRow counts and join guards, see the module docstring).
     Joins whose ids are in `sort_joins` take the sort path; `device` holds
     the rows of a Values node; `node_hook(nid, node, stage)`, when given,
-    runs after each node (EXPLAIN ANALYZE's per-operator statistics)."""
+    runs after each node (EXPLAIN ANALYZE's per-operator statistics);
+    `fuse=False` keeps every node of a fusible aggregate chain its own
+    (so each gets its hook)."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -604,7 +646,7 @@ def _trace_plan(
         the kernel's plain version."""
         from ..ops.cuda import fused as _fused
 
-        if not _kernels.get_policy().enabled:
+        if not (fuse and _kernels.get_policy().enabled):
             return None
         frag = fused_fragment(node)
         if frag is None:
@@ -865,9 +907,15 @@ def _trace_plan(
             return _Stage(cols, live)
 
         name = type(node).__name__
+        if name == "Exchange":
+            raise NotImplementedError(
+                "an Exchange runs between the tasks of a distributed plan: "
+                "exec/spmd.py (exchanges in device memory) or exec/spill.py (out "
+                "of core) executes the plan; LocalExecutor runs one fragment"
+            )
         raise NotImplementedError(
             f"plan node {name} is not ported to trino_tpu_torch yet "
-            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.10-A.11')})"
+            f"(ROADMAP {_ROADMAP_ITEM.get(name, 'A.11')})"
         )
 
     events = _kernels.begin_capture()

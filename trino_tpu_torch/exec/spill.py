@@ -35,13 +35,13 @@ import tempfile
 from ..connectors.spi import CatalogManager
 from ..data.page import Page
 from ..plan.distribute import distribute
-from ..plan.fragmenter import fragment_plan
 from ..plan.nodes import PlanNode, TableScan
 from ..runtime.disk import guarded_write
 from ..runtime.wire import page_to_wire_chunks, partition_page, wire_to_page
 from ..utils.metrics import GLOBAL as _METRICS
 from .compiler import LocalExecutor, _node_ids
 from .dynfilter import collect_dynamic_filters
+from .stages import StagedExecutor
 
 __all__ = ["OutOfCoreExecutor", "estimate_plan_bytes"]
 
@@ -66,10 +66,11 @@ def estimate_plan_bytes(plan: PlanNode, catalogs: CatalogManager) -> int:
     return total * 2
 
 
-class OutOfCoreExecutor:
+class OutOfCoreExecutor(StagedExecutor):
     """Executes a logical plan in P sequential hash-partitioned slices with
     disk-backed exchanges, on `device`.  Call-compatible with
-    LocalExecutor.execute for the engine's read path."""
+    LocalExecutor.execute for the engine's read path.  The fragment loop is
+    exec/stages.py's; this class is its transport (spill files)."""
 
     def __init__(
         self,
@@ -98,95 +99,69 @@ class OutOfCoreExecutor:
     def execute(self, plan: PlanNode, params: tuple = ()) -> Page:
         """Run `plan` slice by slice; `params` are a prepared statement's
         bound values, handed to every slice's run."""
-        parts = self.parts
-        dplan = distribute(plan, self.catalogs, parts, self.session)
-        fragments = fragment_plan(dplan)
-        self.fragments = len(fragments)
-        frag_by_id = {f.id: f for f in fragments}
-        ntasks = {f.id: (1 if f.output_kind == "result" else parts) for f in fragments}
-        consumer_of = {}
-        for f in fragments:
-            for child in f.inputs:
-                consumer_of[child] = f.id
-
-        tmp = tempfile.mkdtemp(prefix="trino_tpu_torch_spill_")
+        dplan = distribute(plan, self.catalogs, self.parts, self.session)
+        self._tmp = tempfile.mkdtemp(prefix="trino_tpu_torch_spill_")
         # (fragment id, producer part, output partition) -> chunk files
-        spill: dict[tuple[int, int, int], list[str]] = {}
-        seq = [0]
-
-        def write_chunks(key, chunks: list[bytes]) -> None:
-            paths = []
-            for blob in chunks:
-                path = os.path.join(tmp, f"s{seq[0]}.page")
-                seq[0] += 1
-                guarded_write(path, blob)
-                self.spilled_bytes += len(blob)
-                self.spill_files += 1
-                _SPILL_BYTES.inc(len(blob))
-                _SPILL_FILES.inc()
-                paths.append(path)
-            spill[key] = paths
-
-        def read_blobs(keys) -> list[bytes]:
-            out = []
-            for k in keys:
-                for path in spill.get(k, []):
-                    with open(path, "rb") as fh:
-                        out.append(fh.read())
-            return out
-
+        self._spill: dict[tuple[int, int, int], list[str]] = {}
+        self._seq = 0
         try:
-            for f in sorted(fragments, key=lambda fr: -fr.id):
-                if f.output_kind == "result":
-                    continue
-                out_parts = ntasks[consumer_of[f.id]]
-                # ONE executor per fragment, every slice padded alike: the
-                # slices share learned capacities; the scan cache is dropped
-                # between slices so the card holds one slice's working set
-                ex = self._executor()
-                ex.pad_splits = True
-                for p in range(ntasks[f.id]):
-                    ex.split = (p, ntasks[f.id])
-                    ex.drop_scans()
-                    remote = self._sources(f, frag_by_id, ntasks, p, read_blobs)
-                    ex.scan_filters = collect_dynamic_filters(f.root, remote)
-                    page = ex.execute(f.root, remote, params)
-                    if ex.last_retries:
-                        self.slice_retries.append(
-                            {"fragment": f.id, "part": p, "retries": list(ex.last_retries)}
-                        )
-                    self.rows_pruned += ex.rows_pruned
-                    ex.rows_pruned = 0
-                    if f.output_kind == "repartition":
-                        chunk_lists = partition_page(page, list(f.output_keys), out_parts)
-                        for op, chunks in enumerate(chunk_lists):
-                            write_chunks((f.id, p, op), chunks)
-                    else:
-                        write_chunks((f.id, p, 0), page_to_wire_chunks(page))
-                    del page, remote
-                ex.drop_scans()
-                del ex
-
-            root = frag_by_id[0]
-            ex = self._executor()
-            remote = self._sources(root, frag_by_id, ntasks, 0, read_blobs)
-            return ex.execute(root.root, remote, params)
+            return self.run_fragments(dplan, params)
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(self._tmp, ignore_errors=True)
+            self._spill = {}
 
-    def _sources(self, f, frag_by_id, ntasks, my_part, read_blobs) -> dict[int, Page]:
-        remote: dict[int, Page] = {}
-        for child_id in f.inputs:
-            child = frag_by_id[child_id]
-            kind = child.output_kind
-            nprod = ntasks[child_id]
-            if kind == "single" and my_part != 0:
-                blobs = []
-            elif kind == "repartition":
-                blobs = read_blobs([(child_id, p, my_part) for p in range(nprod)])
-            else:  # gather / broadcast / single
-                blobs = read_blobs([(child_id, p, 0) for p in range(nprod)])
-            remote[child_id] = wire_to_page(
-                blobs, list(child.root.output_types), pad_pow2=True, device=self.device
-            )
-        return remote
+    def _write_chunks(self, key, chunks: list[bytes]) -> None:
+        paths = []
+        for blob in chunks:
+            path = os.path.join(self._tmp, f"s{self._seq}.page")
+            self._seq += 1
+            guarded_write(path, blob)
+            self.spilled_bytes += len(blob)
+            self.spill_files += 1
+            _SPILL_BYTES.inc(len(blob))
+            _SPILL_FILES.inc()
+            paths.append(path)
+        self._spill[key] = paths
+
+    def _run_fragment(self, f, params: tuple) -> None:
+        out_parts = self.consumer_tasks(f)
+        ntasks = self._ntasks[f.id]
+        # ONE executor per fragment, every slice padded alike: the slices
+        # share learned capacities; the scan cache is dropped between slices
+        # so the card holds one slice's working set
+        ex = self._executor()
+        ex.pad_splits = True
+        for p in range(ntasks):
+            ex.split = (p, ntasks)
+            ex.drop_scans()
+            remote = self._sources(f, p)
+            ex.scan_filters = collect_dynamic_filters(f.root, remote)
+            page = ex.execute(f.root, remote, params)
+            if ex.last_retries:
+                self.slice_retries.append(
+                    {"fragment": f.id, "part": p, "retries": list(ex.last_retries)}
+                )
+            self.rows_pruned += ex.rows_pruned
+            ex.rows_pruned = 0
+            if f.output_kind == "repartition":
+                chunk_lists = partition_page(page, list(f.output_keys), out_parts)
+                for op, chunks in enumerate(chunk_lists):
+                    self._write_chunks((f.id, p, op), chunks)
+            else:
+                self._write_chunks((f.id, p, 0), page_to_wire_chunks(page))
+            del page, remote
+        ex.drop_scans()
+
+    def _run_root(self, root, params: tuple) -> Page:
+        ex = self._executor()
+        return ex.execute(root.root, self._sources(root, 0), params)
+
+    def _receive(self, child, reads: list, part: int) -> Page:
+        blobs = []
+        for p, slot in reads:
+            for path in self._spill.get((child.id, p, slot), []):
+                with open(path, "rb") as fh:
+                    blobs.append(fh.read())
+        return wire_to_page(
+            blobs, list(child.root.output_types), pad_pow2=True, device=self.device
+        )

@@ -10,9 +10,9 @@ compiler's output: there is no pure-python codec to fall back to, so a page
 on the wire or in a spill file is always the one format both packages read.
 
 serialize_columns / deserialize_columns move host column batches across
-the wire (spill files, and the exchange of ROADMAP A.10): fixed-width
-columns go as raw little-endian buffers; object columns (strings) as int32
-codes plus a length-prefixed dictionary blob.
+the wire (spill files, and later the exchange between worker processes,
+ROADMAP A.11): fixed-width columns go as raw little-endian buffers; object
+columns (strings) as int32 codes plus a length-prefixed dictionary blob.
 """
 
 from __future__ import annotations

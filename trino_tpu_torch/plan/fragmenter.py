@@ -7,9 +7,11 @@ fragment's output partitioning comes from the exchange that consumed it
 producer fragment (output partitioned per the exchange kind/keys) and a
 RemoteSource leaf in the consumer fragment.
 
-In the port the out-of-core executor (exec/spill.py) runs the fragments
-one after another on one card, parking every exchange on disk as wire
-pages (runtime/wire.py); the exchange across cards is ROADMAP A.10.
+In the port two executors run the fragments (exec/stages.py): the
+distributed one (exec/spmd.py) as D tasks each over a list of devices,
+the exchanges kept in device memory (parallel/exchange.py), and the
+out-of-core one (exec/spill.py) slice after slice on one card, parking
+every exchange on disk as wire pages (runtime/wire.py).
 """
 
 from __future__ import annotations

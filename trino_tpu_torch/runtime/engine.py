@@ -23,8 +23,16 @@ the prepared-statement fast path (runtime/fastpath.py: one cached plan per
 template, parameters bound per run) and substitutes and re-plans only where
 that path declines.
 
-Not here yet: the result cache (ROADMAP A.11), distributed EXPLAIN ANALYZE
-(A.10), the write journal (A.11).
+`Engine(distributed=True, devices=[...])` runs every query over a list of
+devices (exec/spmd.py; a card may repeat: four workers on one card): plan()
+returns the distributed plan (plan/distribute.py), whose fragments run as
+one task per device with the exchanges kept in device memory.  Plans with
+host-collected aggregates stay local on a fallback executor, as in the
+reference; no budget and no out-of-core run apply.  EXPLAIN renders the
+distributed plan, EXPLAIN ANALYZE its row counts summed over the tasks.
+
+Not here yet: the result cache, the coordinator's QueryInfo for distributed
+EXPLAIN ANALYZE, the write journal (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -86,15 +94,48 @@ def _null_column(t, n: int) -> np.ma.MaskedArray:
     return np.ma.MaskedArray(fill, mask=np.ones((n,), dtype=bool))
 
 
+def _host_collected(plan: PlanNode) -> bool:
+    """Plans the distributed engine runs locally: host-collected aggregates
+    (array_agg / map_agg / listagg) and MATCH_RECOGNIZE (the reference's
+    exec/compiler.py `_has_host_aggs`)."""
+    from ..ops.relops import HOST_AGGS
+    from ..plan.nodes import Aggregate, MatchRecognize, walk
+
+    return any(
+        isinstance(n, MatchRecognize)
+        or (isinstance(n, Aggregate) and any(a.fn in HOST_AGGS for a in n.aggs))
+        for n in walk(plan)
+    )
+
+
 class Engine:
     """`device` is where table pages live and operators run: the CUDA card by
-    default (raises when there is none), the CPU only on request."""
+    default (raises when there is none), the CPU only on request.
+    `distributed=True` runs every query over `devices` (default: every
+    visible card; on the CPU, `device` alone) through exec/spmd.py — the
+    in-process counterpart of the reference's DistributedQueryRunner."""
 
-    def __init__(self, default_catalog: str = "tpch", device="cuda"):
+    def __init__(
+        self, default_catalog: str = "tpch", device="cuda", distributed: bool = False,
+        devices=None,
+    ):
         self.catalogs = CatalogManager()
         self.default_catalog = default_catalog
         self.planner = Planner(self.catalogs, default_catalog)
-        self.executor = LocalExecutor(self.catalogs, default_catalog, device=device)
+        self.distributed = distributed
+        if distributed:
+            from ..exec.spmd import SpmdExecutor
+
+            if devices is None and torch.device(device).type != "cuda":
+                devices = [device]
+            self.executor = SpmdExecutor(self.catalogs, default_catalog, devices)
+            # plans with host-collected aggregates run here, on the first device
+            self._local_fallback = LocalExecutor(
+                self.catalogs, default_catalog, device=self.executor.device
+            )
+        else:
+            self.executor = LocalExecutor(self.catalogs, default_catalog, device=device)
+            self._local_fallback = self.executor
         self.device = self.executor.device
         self.session = SessionProperties()
         self._prepared: dict[str, str] = {}
@@ -139,6 +180,10 @@ class Engine:
                 self.access_control.check_can_select(
                     self.user, n.catalog, n.table, n.column_names
                 )
+        if self.distributed and not _host_collected(plan):
+            from ..plan.distribute import distribute
+
+            plan = distribute(plan, self.catalogs, self.executor.num_devices, self.session)
         return plan
 
     def explain(self, sql: str) -> str:
@@ -190,6 +235,8 @@ class Engine:
         sources of writes, EXECUTE and EXPLAIN ANALYZE EXECUTE).  `params`
         are a prepared statement's bound values."""
         self._apply_kernel_props()
+        if self.distributed:  # no budget, no out-of-core run
+            return self._executor_for(plan).execute(plan, params=params)
         budget = self._device_memory_budget()
         if not budget:
             return self.executor.execute(plan, params=params)
@@ -212,6 +259,13 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return self._run_out_of_core(plan, max(est, budget) * 2, budget, params)
+
+    def _executor_for(self, plan: PlanNode):
+        """The executor of a planned query: a distributed engine's host-
+        collected plans came back undistributed and run locally."""
+        if self.distributed and _host_collected(plan):
+            return self._local_fallback
+        return self.executor
 
     def _apply_kernel_props(self) -> None:
         """Session → data-plane kernel policy (ops/kernels.py): re-applied
@@ -524,6 +578,7 @@ class Engine:
                     f" got {len(ex_stmt.parameters)}"
                 )
             slots = fp._slots(ex_stmt.parameters)
+            self._apply_kernel_props()  # the cache key holds this session's policy
             entry = fp._lookup(sql_text, tmpl.query, slots)
         except NotFastpath:
             bound = S.parse_statement(sql_text, params=ex_stmt.parameters)
@@ -550,7 +605,8 @@ class Engine:
     def _execute_explain(self, stmt) -> list[tuple]:
         """EXPLAIN [ANALYZE] in the session's explain_format (text | json).
         ANALYZE runs the plan once with per-operator row counts and times
-        (LocalExecutor.explain_analyze)."""
+        (LocalExecutor.explain_analyze); a distributed plan's counts are
+        summed over its tasks (SpmdExecutor.explain_analyze)."""
         import json as _json
 
         from ..plan.nodes import plan_to_obj
@@ -568,7 +624,7 @@ class Engine:
 
         t0 = _time.perf_counter()
         self._apply_kernel_props()
-        page, stats = self.executor.explain_analyze(plan)
+        page, stats = self._executor_for(plan).explain_analyze(plan)
         n_out = len(page.to_pylist())
         wall = _time.perf_counter() - t0
         if fmt == "json":
@@ -654,6 +710,8 @@ class Engine:
             return  # dropping an unknown catalog's table: nothing cached
         table = table.split(".")[-1]
         self.executor.drop_table_cache(catalog, table)
+        if self._local_fallback is not self.executor:
+            self._local_fallback.drop_table_cache(catalog, table)
         fp = getattr(self, "_fastpath", None)
         if fp is not None:
             fp.invalidate_table(catalog, table)

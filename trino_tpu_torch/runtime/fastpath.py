@@ -328,6 +328,9 @@ class FastPath:
                 f"prepared statement takes {n_params} parameters, got {len(param_exprs)}"
             )
         slots = self._slots(param_exprs)
+        # the plan-cache key holds the kernel policy: this session's, not
+        # what the process's last statement left
+        eng._apply_kernel_props()
         entry = self._lookup(sql, stmt.query, slots)
         params = self._param_values(entry.slots, slots)
         window_s = float(eng.session.get("execute_batch_window_ms") or 0.0) / 1e3

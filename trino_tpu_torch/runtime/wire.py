@@ -1,10 +1,11 @@
 """Host-side page wire helpers: pages as framed, compressed column batches.
 
 A page that leaves the card (a spill file of the out-of-core executor,
-exec/spill.py; the exchange of ROADMAP A.10) is compacted to its live rows
-on the host, framed and compressed by the C++ serde (trino_tpu_torch/native,
-built from the repo's native/pageserde.cpp) and rebuilt into a device page
-by its consumer — the reference's PagesSerdes + PositionsAppender path
+exec/spill.py; later the exchange between worker processes, ROADMAP A.11)
+is compacted to its live rows on the host, framed and compressed by the C++
+serde (trino_tpu_torch/native, built from the repo's native/pageserde.cpp)
+and rebuilt into a device page by its consumer — the reference's
+PagesSerdes + PositionsAppender path
 (execution/buffer/, operator/output/PagePartitioner.java:135).  The bytes
 are the JAX package's wire format: a blob written by either package decodes
 in the other.
