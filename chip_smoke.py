@@ -78,7 +78,16 @@ reads no exchanged column to the host, holds the kernels' calls of Q18 and
 the TopN against their plain versions, and at SF 0.01 holds EXPLAIN
 ANALYZE row counts and the distributed test files' statements, card
 against `Engine(device="cpu", distributed=True)`; on a machine with more
-cards, Q3 and Q18 once more over every card.
+cards, Q3 and Q18 once more over every card.  The `cluster` phase boots the
+multi-host runtime in this process — a coordinator and three workers over
+loopback HTTP, `DistributedQueryRunner(devices=["cuda:0"] * 3)`, every task
+on the card, pages exchanged as wire chunks — and runs Q1, Q3, Q6, Q13, Q18
+and the TopN cold then warm (rows equal the `tpch` phase's), count(*)
+through the client protocol, Q6 through the DB-API driver, a CTAS into a
+memory catalog (against numpy), Q3 under task retry with a failure
+injected, the kernels' calls of Q18 inside the workers' tasks against their
+plain versions, then the cluster test file's statements and the EXPLAIN
+ANALYZE row counts of Q3 at SF 0.01, card cluster against CPU cluster.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -98,6 +107,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from decimal import Decimal
 from pathlib import Path
@@ -1283,11 +1293,13 @@ def rows_match(got, want, what: str) -> None:
                 fail(f"{what}: row {r} col {c}: {x!r} != {y!r}")
 
 
-def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
+def check_main_path_calls(engine, lines, require_all: bool = True, select=None) -> list:
     """Run the main path's statements once more with every kernel wrapper
     shadowed: each call the engine makes is held against the kernel's plain
     version on the very tensors the engine passed, and timed there.  (These
-    launches come after the main path's counts were read.)"""
+    launches come after the main path's counts were read.)  `select`, where
+    given, picks the calls to hold (it is asked on the calling thread); the
+    others only run."""
     from trino_tpu_torch.ops.cuda import fused, hashagg, hashjoin, topk
     from trino_tpu_torch.ops.cuda import segreduce as sr
     from trino_tpu_torch.tools import time_kernels as tk
@@ -1310,7 +1322,12 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
     calls = []
     current = [""]
 
+    def skip() -> bool:
+        return select is not None and not select()
+
     def checked_reduce(seg, reds, G, **kw):
+        if skip():
+            return real["reduce"](seg, reds, G, **kw)
         got = real["reduce"](seg, reds, G, **kw)
         err = segreduce_case(seg, reds, G, f"main path {current[0]}", got=got)
         calls.append({
@@ -1323,6 +1340,8 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
         return got
 
     def checked_run(recipe, cols, live):
+        if skip():
+            return real["run"](recipe, cols, live)
         got = real["run"](recipe, cols, live)
         err = fused_case(recipe, cols, live, f"main path {current[0]}", got=got)
         calls.append({
@@ -1338,6 +1357,8 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
         return got
 
     def checked_build(words, live, cap, **kw):
+        if skip():
+            return real["build"](words, live, cap, **kw)
         got = real["build"](words, live, cap, **kw)
         hash_case(words, live, cap, f"main path {current[0]}", got=got,
                   keep_keys=kw.get("keep_keys", True), probe=real["probe"])
@@ -1352,6 +1373,8 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
         return got
 
     def checked_probe(words, live, table):
+        if skip():
+            return real["probe"](words, live, table)
         got = real["probe"](words, live, table)
         hits = probe_case(words, live, table, f"main path {current[0]}", got=got)
         calls.append({
@@ -1365,6 +1388,8 @@ def check_main_path_calls(engine, lines, require_all: bool = True) -> list:
         return got
 
     def checked_select(u, live, k, cap=None):
+        if skip():
+            return real["select"](u, live, k, cap)
         got = real["select"](u, live, k, cap)
         radix_check(u, live, k, cap, got, f"main path {current[0]}")
         calls.append({
@@ -1539,8 +1564,8 @@ def measure_lines(engine, cpu_engine, lines, want, launches, phase, runs,
 
 
 def statement_timing(engine, sql, runs) -> dict:
-    """`runs` warm runs, `runs` runs layer by layer and a profiled set of
-    `runs` of one statement on the card (medians)."""
+    """`runs` warm runs, one run layer by layer and one profiled run of one
+    statement on the card (`warm_ms` the median of the warm runs)."""
     warm, plan_ms, exec_ms, fetch_ms = [], [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1548,7 +1573,7 @@ def statement_timing(engine, sql, runs) -> dict:
         engine.query(sql)
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
-    for _ in range(runs):  # the same statement, layer by layer
+    for _ in range(1):  # the same statement, layer by layer
         t0 = time.perf_counter()
         plan = engine.plan(sql)
         t1 = time.perf_counter()
@@ -1560,7 +1585,7 @@ def statement_timing(engine, sql, runs) -> dict:
         plan_ms.append((t1 - t0) * 1e3)
         exec_ms.append((t2 - t1) * 1e3)
         fetch_ms.append((t3 - t2) * 1e3)
-    busy = device_busy(engine, sql, runs)
+    busy = device_busy(engine, sql, 1)
     warm_ms = statistics.median(warm)
     idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm_ms
     return {
@@ -1872,9 +1897,10 @@ def tpcds_phase(engine, scale):
     # every count to 0 just before the path, read just after
     reset_kernel_counts()
     t_path = time.perf_counter()
-    ds_lines, launches = run_lines(ds, queries, ds_variants, {}, ordered)
+    kept: dict = {}  # each counted run's rows: the comparisons below reuse them
+    ds_lines, launches = run_lines(ds, queries, ds_variants, {}, ordered, keep=kept)
     w_lines, w_launches = run_lines(engine, w_queries, [("tpcds", "true", tuple(w_queries), [])],
-                                    want)
+                                    want, keep=kept)
     counts = kernel_counts()
     path_s = time.perf_counter() - t_path
     for k in ("segment_reduce", "hash_build", "hash_probe"):
@@ -1885,8 +1911,7 @@ def tpcds_phase(engine, scale):
         [(ln, ds, SHORT_RUNS) for ln in ds_lines] + [(ln, engine, 3) for ln in w_lines]
     ):
         what = f"{name}/{variant}"
-        eng.execute(f"set session data_plane_kernels = {flag}")
-        got = eng.query(sql)
+        got = kept[what]
         other = "false" if flag == "true" else "true"
         eng.execute(f"set session data_plane_kernels = {other}")
         t0 = time.perf_counter()
@@ -2083,7 +2108,7 @@ def run_statements(engine, measure: bool) -> list:
                 sync()
                 warm.append((time.perf_counter() - t0) * 1e3)
             r["warm_ms"] = statistics.median(warm)
-            busy = traced_busy(lambda: engine.execute(sql), 3)
+            busy = traced_busy(lambda: engine.execute(sql), 1)
             r["device_busy_ms"] = busy["device_busy_ms"]
             r["device_idle_share"] = (None if busy["device_busy_ms"] is None
                                       else 1.0 - busy["device_busy_ms"] / r["warm_ms"])
@@ -3507,7 +3532,7 @@ def run_lake(eng, measure: bool) -> dict:
         if name in ("faker_users", "faker_top_users") and line["group_by"]["cuda"] < 1:
             fail(f"lake {name}: GROUP BY user_id did not take the hash path: "
                  f"{line['group_by']}")
-        line["warm_ms"] = warm_median(eng, sql)
+        line["warm_ms"] = warm_median(eng, sql, SHORT_RUNS)
         busy = device_busy(eng, sql, 3)
         line.update(device_busy_ms=busy["device_busy_ms"], top_kernels=busy["top_kernels"],
                     device_idle_share=None if busy["device_busy_ms"] is None
@@ -3906,6 +3931,274 @@ def distributed_phase(engine, scale, tpch_rows):
     return counts, seconds
 
 
+# ------------------------------------------------------------ the cluster
+
+CLUSTER_WORKERS = 3  # DistributedQueryRunner(devices=["cuda:0"] * 3): three workers, one card
+CLUSTER_QUERIES = ("q01", "q03", "q06", "q13", "q18")  # and TOPN
+CLUSTER_CROSS_SCALE = 0.01
+# the statements of tests/test_torch_cluster.py that read TPC-H (the five
+# queries above are run too), card cluster against CPU cluster at SF 0.01
+CLUSTER_CROSS = {
+    "count": "select count(*) from lineitem",
+    "sum_count": "select sum(l_quantity), count(*) from lineitem",
+    "sum_quantity": "select sum(l_quantity) from lineitem",
+    "orders": "select count(*) from orders",
+    "chunked": "select l_orderkey, count(*) from lineitem group by l_orderkey",
+}
+CLUSTER_CTAS = ("create table memory.big_qty as "
+                "select l_orderkey, l_quantity from lineitem where l_quantity > 45")
+CLUSTER_CTAS_READ = "select count(*), sum(l_quantity) from memory.big_qty"
+
+
+def cluster_runner(devices, scale):
+    """A started cluster (coordinator + one worker per device, over loopback
+    HTTP in this process) with TPC-H at `scale` and an empty memory
+    catalog."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    runner = DistributedQueryRunner(num_workers=len(devices), devices=devices)
+    runner.register_catalog("tpch", TpchConnector(scale))
+    runner.register_catalog("memory", MemoryConnector())
+    runner.start()
+    # every run executes on the workers: the coordinator's result cache
+    # would answer a statement's third run from its rows
+    runner.coordinator.session.set("result_cache_enabled", "false")
+    return runner
+
+
+def last_query_info(runner) -> dict:
+    coord = runner.coordinator
+    return coord.queries[list(coord.queries)[-1]].get("query_info") or {}
+
+
+def cluster_task_totals(info: dict) -> dict:
+    """Exchange bytes fetched and upload ms summed over a query's tasks."""
+    tasks = [t for st in info.get("stages") or [] for t in st.get("tasks") or []]
+    return {
+        "stages": info.get("stage_count"),
+        "tasks": len(tasks),
+        "exchange_bytes_fetched": sum(int(t.get("exchange_bytes_fetched") or 0) for t in tasks),
+        "upload_ms": sum(float(t.get("upload_ms") or 0.0) for t in tasks),
+    }
+
+
+def stage_rows(info: dict) -> dict:
+    """{stage id: {node id: live rows summed over the stage's tasks}}."""
+    return {str(st["stage_id"]): {nid: s.get("rows") for nid, s in st["operators"].items()}
+            for st in info["stages"]}
+
+
+class ClusterFront:
+    """What check_main_path_calls drives: queries go to the cluster; the
+    kernel setting is the process-global policy every worker task reads."""
+
+    def __init__(self, runner):
+        self.runner = runner
+
+    def execute(self, sql: str):
+        from trino_tpu_torch.ops import kernels
+
+        flag = sql.rsplit("=", 1)[1].strip()
+        kernels.set_policy(kernels.KernelPolicy(enabled=flag == "true"))
+
+    def query(self, sql: str):
+        return self.runner.query(sql)
+
+
+def cluster_kernel_calls(runner, sql) -> list:
+    """The kernels' calls of `sql` inside worker 0's tasks, each held against
+    its plain version on the task's own tensors (the other workers' calls
+    only run).  The checks run on the worker's task threads, where a failed
+    one must fail the task, not end the thread: they raise there and the
+    run fails here."""
+    errors = []
+
+    def thread_fail(msg):
+        errors.append(msg)
+        raise RuntimeError(msg)
+
+    saved = globals()["fail"]
+    globals()["fail"] = thread_fail
+    try:
+        prefix = f"worker-{runner.workers[0].port}-task"
+        calls = check_main_path_calls(
+            ClusterFront(runner), [("cluster", "true", "q18", sql, 0, ())], require_all=False,
+            select=lambda: threading.current_thread().name.startswith(prefix))
+    except RuntimeError as ex:
+        errors.append(str(ex))
+        calls = []
+    finally:
+        globals()["fail"] = saved
+    if errors:
+        fail(f"cluster kernel_calls: {errors[0]}")
+    return calls
+
+
+def cluster_cross_check(queries, ordered) -> dict:
+    """At SF 0.01, a card cluster (three workers on one card) against a CPU
+    cluster (`device="cpu"`, three workers): the cluster test file's TPC-H
+    statements, rows compared, and the per-stage operator row counts of
+    EXPLAIN ANALYZE of Q3 (QueryInfo in the JSON explain format)."""
+    dev0 = torch.device("cuda", 0)
+    card = cluster_runner([dev0] * CLUSTER_WORKERS, CLUSTER_CROSS_SCALE)
+    host = cluster_runner(["cpu"] * CLUSTER_WORKERS, CLUSTER_CROSS_SCALE)
+    try:
+        stmts = dict({n: queries[n] for n in CLUSTER_QUERIES}, topn=TOPN, **CLUSTER_CROSS)
+        for name, sql in stmts.items():
+            rows_agree(card.query(sql), host.query(sql), name,
+                       f"cluster SF {CLUSTER_CROSS_SCALE} {name}: cuda vs cpu",
+                       dict(ordered, **{k: False for k in CLUSTER_CROSS}))
+        explain = []
+        for r in (card, host):
+            r.coordinator.session.set("explain_format", "json")
+            explain.append(json.loads(r.query("explain analyze " + queries["q03"])[0][0]))
+        got, want = stage_rows(explain[0]), stage_rows(explain[1])
+        if got != want:
+            fail(f"cluster EXPLAIN ANALYZE q03 at SF {CLUSTER_CROSS_SCALE}: {got} != the CPU's {want}")
+        return {"statements": len(stmts), "q03_explain_rows": got}
+    finally:
+        card.stop()
+        host.stop()
+
+
+def cluster_phase(engine, scale, tpch_rows):
+    """The multi-host runtime on the card at TPC-H `scale`: a coordinator and
+    three workers over loopback HTTP in this process
+    (DistributedQueryRunner(devices=["cuda:0"] * 3)), every task on the
+    card.  Q1, Q3, Q6, Q13, Q18 and TOPN cold then warm, each against the
+    tpch phase's rows (TOPN: the TPC-H engine's), with exchange bytes
+    fetched, the tasks' upload ms, idle share and launches; count(*) of
+    lineitem through StatementClient and Q6 through the DB-API driver; a
+    CTAS into a memory catalog through the protocol, its count and sum
+    against numpy; Q3 under retry_policy=TASK with a task failure injected
+    on worker 0; the kernels' calls of Q18 inside a worker's tasks against
+    their plain versions; then SF 0.01, card cluster against CPU cluster.
+    Returns (the path's launch counts, phase seconds)."""
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.client.dbapi import connect
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    queries, ordered = tpch_queries()
+    want = dict(tpch_rows, topn=engine.query(TOPN))
+    engine.executor.drop_scans()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.set_policy(kernels.KernelPolicy())  # the session defaults: every kernel on
+    stmts = dict({n: queries[n] for n in CLUSTER_QUERIES}, topn=TOPN)
+    dev0 = torch.device("cuda", 0)
+    runner = cluster_runner([dev0] * CLUSTER_WORKERS, scale)
+    try:
+        # every count to 0 just before the path, read just after
+        reset_kernel_counts()
+        for name, sql in stmts.items():
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = runner.query(sql)
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t0) * 1e3
+            cold_totals = cluster_task_totals(last_query_info(runner))
+            rows_agree(rows, want[name], name, f"cluster {name} (cold) vs tpch", ordered)
+            # one warm run inside a card-only trace (it adds microseconds per
+            # launch): its wall is warm_ms, the trace its device time
+            laps, got = [], []
+
+            def warm_run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got.append(runner.query(sql))
+                torch.cuda.synchronize()
+                laps.append((time.perf_counter() - t0) * 1e3)
+
+            busy = traced_busy(warm_run, 1)
+            if not laps:  # the profiler failed before the run: run it plain
+                warm_run()
+            warm = laps[-1]
+            rows = got[-1]
+            warm_totals = cluster_task_totals(last_query_info(runner))
+            rows_agree(rows, want[name], name, f"cluster {name} (warm) vs tpch", ordered)
+            if warm_totals["upload_ms"]:
+                fail(f"cluster {name}: a warm run uploaded ({warm_totals['upload_ms']} ms)")
+            after = kernel_counts()
+            idle = None if busy["device_busy_ms"] is None else 1.0 - busy["device_busy_ms"] / warm
+            emit({"phase": "cluster", "query": name, "workers": CLUSTER_WORKERS,
+                  "rows": len(rows), "correct": True, "warm_ms": warm,
+                  "warm_ms_tpch": TPCH_WARM_MS.get(name), "cold_ms": cold,
+                  "cold": cold_totals, "warm": warm_totals, "device_idle_share": idle, **busy,
+                  "launches": {k: after[k] - before[k] for k in KERNEL_NAMES}})
+        # the client protocol, the DB-API driver and a write through them
+        t0 = time.perf_counter()
+        _cols, got = StatementClient(runner.coordinator.url).execute(
+            "select count(*) from lineitem")
+        count_ms = (time.perf_counter() - t0) * 1e3
+        n_li = engine.query("select count(*) from lineitem")[0][0]
+        if [list(r) for r in got] != [[n_li]]:
+            fail(f"cluster count(*) through StatementClient: {got} != {n_li}")
+        t0 = time.perf_counter()
+        with connect(runner.coordinator.url) as conn:
+            cur = conn.cursor()
+            cur.execute(queries["q06"])
+            q6 = cur.fetchall()
+        q6_ms = (time.perf_counter() - t0) * 1e3
+        if [[Decimal(str(v)) for v in r] for r in q6] != [list(r) for r in want["q06"]]:
+            fail(f"cluster q06 through dbapi: {q6} != {want['q06']}")
+        li = tpch_data("lineitem", scale)
+        qty = np.asarray(li["l_quantity"], np.int64)  # decimal(12,2), unscaled
+        big = qty[qty > 4500]
+        t0 = time.perf_counter()
+        StatementClient(runner.coordinator.url).execute(CLUSTER_CTAS)
+        ctas_ms = (time.perf_counter() - t0) * 1e3
+        _cols, got = StatementClient(runner.coordinator.url).execute(CLUSTER_CTAS_READ)
+        want_ctas = [len(big), Decimal(exact_sum(big)) / 100]
+        if [int(got[0][0]), Decimal(str(got[0][1]))] != want_ctas:
+            fail(f"cluster CTAS through the protocol: {got} != numpy {want_ctas}")
+        # a task failure under retry_policy=TASK: re-scheduled, same rows
+        runner.coordinator.session.set("retry_policy", "TASK")
+        runner.inject_task_failure(worker_index=0, task_id="*")
+        t0 = time.perf_counter()
+        rows = runner.query(queries["q03"])
+        retry_ms = (time.perf_counter() - t0) * 1e3
+        coord = runner.coordinator
+        retried = coord.queries[list(coord.queries)[-1]].get("task_retries", 0)
+        coord.session.set("retry_policy", "NONE")
+        rows_agree(rows, want["q03"], "q03", "cluster q03 under TASK retry vs tpch", ordered)
+        if not retried:
+            fail("cluster q03 under TASK retry: no task was retried")
+        counts = kernel_counts()
+        emit({"phase": "cluster", "step": "protocol", "count_ms": count_ms, "q06_dbapi_ms": q6_ms,
+              "ctas_ms": ctas_ms, "ctas_rows": len(big), "task_retry_q03_ms": retry_ms,
+              "task_retries": retried, "correct": True})
+        for k in KERNEL_NAMES:
+            if counts[k] < 1:
+                fail(f"cluster path never launched {k}: {counts}")
+        # launches made from here on are not part of the path's count
+        calls = cluster_kernel_calls(runner, queries["q18"])
+        missing = {"segment_reduce", "hash_build", "hash_probe"} - {c["kernel"] for c in calls}
+        if missing:
+            fail(f"cluster kernel_calls of q18 reached no call of {sorted(missing)}")
+        emit({"phase": "cluster", "step": "kernel_calls", "calls": calls})
+        kernels.set_policy(kernels.KernelPolicy())
+    finally:
+        runner.stop()
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cross = cluster_cross_check(queries, ordered)
+    emit({"phase": "cluster", "step": "cross_scale", "scale": CLUSTER_CROSS_SCALE,
+          "correct": True, **cross, "seconds": round(time.perf_counter() - t0, 3)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "cluster", "step": "summary", "scale": scale, "seconds": round(seconds, 1),
+          "statements": len(stmts) + 4, "launches": counts})
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -4028,12 +4321,13 @@ def main(argv=None) -> int:
     fastpath_counts, fastpath_s = fastpath_phase(engine, args.scale)
     lake_counts, lake_s = lake_phase(engine, args.scale, tpch_rows)
     dist_counts, dist_s = distributed_phase(engine, args.scale, tpch_rows)
+    cluster_counts, cluster_s = cluster_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
                    "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
                    "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]],
-                   "distributed": dist_counts[r["name"]]}
+                   "distributed": dist_counts[r["name"]], "cluster": cluster_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -4044,7 +4338,8 @@ def main(argv=None) -> int:
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
           "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
           "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
-          "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1)})
+          "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1),
+          "cluster_seconds": round(cluster_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

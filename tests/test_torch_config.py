@@ -1,7 +1,8 @@
 """The port's catalog files and node config (trino_tpu_torch/runtime/config.py)
 against the JAX package's: the catalog and node-config half of
 tests/test_config.py::test_load_properties_and_catalogs, once per connector
-name, and the two process-global appliers."""
+name, and the two process-global appliers (the time-series one applies
+since the port has utils/timeseries.py)."""
 
 import pytest
 try:  # arrow before torch: loaded after it, arrow's parquet writer crashes the process
@@ -52,7 +53,9 @@ def test_load_properties_and_catalogs(connector, tmp_path):
     assert port.load_properties(str(etc / "config.properties")) == ref.load_properties(
         str(etc / "config.properties"))
     cfg, ref_cfg = port.load_node_config(str(etc)), ref.load_node_config(str(etc))
-    assert vars(cfg) == vars(ref_cfg)
+    # the port's one key of its own: the device a node's tasks run on
+    assert cfg.device == "cuda"
+    assert {k: v for k, v in vars(cfg).items() if k != "device"} == vars(ref_cfg)
     assert cfg.coordinator and cfg.retry_policy == "TASK"
     assert cfg.exchange_spool_dir == "/tmp/spool_x"
     assert cfg.cluster_memory_limit_bytes == 123456
@@ -91,5 +94,14 @@ def test_appliers(tmp_path):
         assert (ring._size, ring.enabled) == (64, True)
     finally:
         flightrecorder.configure(ring_size=saved[0], enabled=saved[1])
-    with pytest.raises(NotImplementedError, match="A.11"):
+    from trino_tpu_torch.utils import timeseries
+
+    saved = timeseries.STORE.stats()
+    try:
         apply_timeseries_config(cfg)
+        assert timeseries.STORE.stats()["enabled"] is False
+    finally:
+        timeseries.configure(
+            enabled=saved["enabled"], ring_size=saved["ring_size"],
+            sample_interval_s=saved["sample_interval_s"],
+        )

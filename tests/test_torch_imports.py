@@ -71,6 +71,24 @@ FILE_CONNECTOR_MODULES = (
 )
 
 
+# the multi-host cluster (coordinator, workers, clients, server, test
+# runner) and every module they import: each must be walked too
+CLUSTER_MODULES = (
+    "trino_tpu_torch.runtime.coordinator", "trino_tpu_torch.runtime.worker",
+    "trino_tpu_torch.runtime.statemachine", "trino_tpu_torch.runtime.events",
+    "trino_tpu_torch.runtime.history", "trino_tpu_torch.runtime.health",
+    "trino_tpu_torch.runtime.resourcegroups", "trino_tpu_torch.runtime.journal",
+    "trino_tpu_torch.runtime.fleet", "trino_tpu_torch.runtime.spool",
+    "trino_tpu_torch.runtime.splits", "trino_tpu_torch.runtime.warmup",
+    "trino_tpu_torch.runtime.resultcache", "trino_tpu_torch.utils.tracing",
+    "trino_tpu_torch.utils.timeseries", "trino_tpu_torch.utils.roofline",
+    "trino_tpu_torch.utils.profiler", "trino_tpu_torch.client",
+    "trino_tpu_torch.client.client", "trino_tpu_torch.client.dbapi",
+    "trino_tpu_torch.client.cli", "trino_tpu_torch.testing",
+    "trino_tpu_torch.testing.runner", "trino_tpu_torch.server",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -99,6 +117,7 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert set(OUT_OF_CORE_MODULES) <= walked, sorted(set(OUT_OF_CORE_MODULES) - walked)
     assert set(FILE_CONNECTOR_MODULES) <= walked, sorted(
         set(FILE_CONNECTOR_MODULES) - walked)
+    assert set(CLUSTER_MODULES) <= walked, sorted(set(CLUSTER_MODULES) - walked)
 
 
 def test_no_refusal_names_the_nested_value_family():
@@ -182,13 +201,30 @@ def test_no_refusal_names_the_distributed_plane(kind, tmp_path):
     assert dist.execute("select count(*), sum(k) from big") == [(100, 4950)]
 
 
-def test_timeseries_config_names_the_control_plane():
-    """The time-series applier of runtime/config.py waits for the control
-    plane: it raises naming ROADMAP A.11."""
-    from trino_tpu_torch.runtime.config import NodeConfig, apply_timeseries_config
+def test_timeseries_config_names_the_control_plane(tmp_path):
+    """The time-series applier of runtime/config.py applies a node config's
+    keys to the process-global store (utils/timeseries.py), as a node boot
+    does (`python -m trino_tpu_torch.server --etc DIR`)."""
+    from trino_tpu_torch.runtime.config import apply_timeseries_config, load_node_config
+    from trino_tpu_torch.utils import timeseries
 
-    with pytest.raises(NotImplementedError, match=r"A\.11"):
-        apply_timeseries_config(NodeConfig({}))
+    (tmp_path / "config.properties").write_text(
+        "coordinator=false\nnode.device=cpu\ntimeseries.enabled=false\n"
+        "timeseries.ring-size=64\ntimeseries.sample-interval-s=0.5\n"
+    )
+    cfg = load_node_config(str(tmp_path))
+    assert cfg.device == "cpu" and not cfg.coordinator
+    saved = timeseries.STORE.stats()
+    try:
+        apply_timeseries_config(cfg)
+        got = timeseries.STORE.stats()
+        assert got["enabled"] is False and got["ring_size"] == 64
+        assert got["sample_interval_s"] == 0.5
+    finally:
+        timeseries.configure(
+            enabled=saved["enabled"], ring_size=saved["ring_size"],
+            sample_interval_s=saved["sample_interval_s"],
+        )
 
 
 def test_serde_is_built_at_first_use_not_at_import():
@@ -260,3 +296,17 @@ def test_cuda_entry_points_raise_without_a_device():
         Engine(distributed=True, devices=["cuda:0"] * 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Column.from_numpy(BIGINT, np.arange(3))
+    # the cluster's nodes and its runner run on the card unless told otherwise
+    from trino_tpu_torch.connectors.spi import CatalogManager
+    from trino_tpu_torch.runtime.coordinator import Coordinator
+    from trino_tpu_torch.runtime.worker import Worker
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Coordinator(CatalogManager())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Worker(CatalogManager(), "tpch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedQueryRunner(num_workers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedQueryRunner(num_workers=2, devices=["cuda:0"] * 2)

@@ -34,15 +34,28 @@ domain on the host, before they are uploaded.  Prepared-statement parameters
 ops/expr.param_context: every binding of a plan shares its learned
 capacities.
 
-Two more facts ride the packed `required` transfer: EnforceSingleRow's live
+Worker tasks (runtime/worker.py) and a coordinator's root fragment set a
+few more knobs: `split_pad_rows` pads every scan slice to one fixed
+capacity (split-driven scans, runtime/splits.py), `memory_budget_bytes`
+refuses a run whose planned footprint exceeds it (MemoryBudgetExceeded;
+the task-retry scheduler grows the budget 4x per attempt), and
+`collect_operator_stats` leaves each node's live output rows of the run
+that returned in `last_operator_stats`.  The executors of one node may share
+a ScanCache: uploaded scan columns and learned capacities then outlive a
+task.
+
+Three more facts ride the packed `required` transfer: EnforceSingleRow's live
 count (key -(nid+1); the host raises past one row) and each hash join's
 runtime guard (key _JOIN_GUARD + nid; a set guard — the build overflowed or
 a probe walk ran past its budget — re-runs the plan with that join on the
-sort path).
+sort path), and under `collect_operator_stats` each node's live output
+rows (key _STATS_ROWS_BASE + nid; a fused aggregate chain reports its
+Aggregate and its TableScan, as the reference's counters do).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -67,7 +80,10 @@ from ..plan.nodes import (
     Window,
 )
 
-__all__ = ["LocalExecutor", "fused_fragment", "scan_column_vals"]
+__all__ = [
+    "LocalExecutor", "MemoryBudgetExceeded", "ScanCache", "fused_fragment",
+    "scan_column_vals",
+]
 
 # plan node -> the ROADMAP item that ports it (none is left unported)
 _ROADMAP_ITEM: dict[str, str] = {}
@@ -110,6 +126,31 @@ def _pow2(n: int) -> int:
 
 # `required` key of a hash join's runtime guard: _JOIN_GUARD + node id
 _JOIN_GUARD = 1 << 40
+# `required` key of a node's live output rows under collect_operator_stats:
+# _STATS_ROWS_BASE + node id (capacity keys are small preorder ids,
+# EnforceSingleRow's are negative, join guards start at _JOIN_GUARD)
+_STATS_ROWS_BASE = 1_000_000
+
+
+class MemoryBudgetExceeded(RuntimeError):
+    """The planned capacities exceed the task's device-memory budget; the
+    task-retry scheduler retries the task with a 4x larger budget."""
+
+
+class ScanCache:
+    """Uploaded scan columns and learned capacities that several executors
+    share: the tasks of one worker node (runtime/worker.py), which would
+    otherwise re-read, re-encode and re-upload their table slices on every
+    task.  Entries are keyed by table, columns, split, pad, dynamic filters
+    and write generation, so tasks over different slices never collide;
+    `lock` serializes the reads and uploads of concurrent tasks."""
+
+    def __init__(self):
+        self.cols: dict = {}
+        self.pages: dict = {}
+        self.live: dict = {}
+        self.learned_caps: dict = {}
+        self.lock = threading.RLock()
 
 
 class LocalExecutor:
@@ -118,7 +159,8 @@ class LocalExecutor:
     :706 — full engine, no HTTP)."""
 
     def __init__(
-        self, catalogs: CatalogManager, default_catalog: str = "tpch", device="cuda"
+        self, catalogs: CatalogManager, default_catalog: str = "tpch", device="cuda",
+        scan_cache: Optional[ScanCache] = None,
     ):
         self.catalogs = catalogs
         self.default_catalog = default_catalog
@@ -129,19 +171,45 @@ class LocalExecutor:
         # pad every slice to ceil(total / num_parts) rows (a dead tail), so
         # all slices of a fragment share one set of learned capacities
         self.pad_splits = False
+        # split-driven scans (runtime/splits.py): every scan page pads to
+        # this fixed capacity, whatever its row range holds.  None = off
+        self.split_pad_rows: Optional[int] = None
+        # per-task device-memory budget in bytes (None / 0 = none): the
+        # task-retry scheduler grows it across attempts; checked against an
+        # estimate over the planned capacities before the run
+        self.memory_budget_bytes: Optional[int] = None
+        self.last_estimated_bytes = 0
+        # each node's live output rows of the run that returned, counted on
+        # the device and read in the run's one packed transfer:
+        # {nid: {operator, rows, rows_in, output_bytes, invocations}}
+        self.collect_operator_stats = False
+        self.last_operator_stats: dict[int, dict] = {}
+        self.last_execute_wall_ms: Optional[float] = None
+        # attribution of the last execute(): NVRTC builds of kernel 2
+        # recipes (utils/profiler.py; the port's only run-time compiles),
+        # the wall spent on them and on the rest of the call, and the run
+        # per plan signature
+        self.compile_events: list[dict] = []
+        self.last_compile_ms = 0.0
+        self.last_execute_ms = 0.0
+        self.execute_events: dict[str, dict] = {}
         # dynamic filters: scan node id -> (ScanFilter, ...), applied on the
         # host before upload (exec/dynfilter.py); rows outside a join's
         # build-side key domain never reach the card
         self.scan_filters: dict = {}
         self.rows_pruned = 0  # rows those filters dropped
-        # keys end in the table's write generation; the split and the
-        # filters are part of every key
-        self._table_cols: dict = {}
-        self._table_pages: dict = {}
+        # keys end in the table's write generation; the split, the pad and
+        # the filters are part of every key.  A shared ScanCache holds them
+        # for every executor of a node
+        cache = scan_cache if scan_cache is not None else ScanCache()
+        self.scan_cache = cache
+        self._scan_lock = cache.lock
+        self._table_cols: dict = cache.cols
+        self._table_pages: dict = cache.pages
         # live rows of scan pages padded with dead rows: an empty table or
         # slice scans as one dead row (kernels need a capacity of at least
         # 1), a padded or filtered slice keeps a dead tail
-        self._table_live: dict = {}
+        self._table_live: dict = cache.live
         # host ms spent reading and uploading table columns in the last
         # execute() call (0 when every column was already on the device)
         self.last_upload_ms = 0.0
@@ -150,7 +218,9 @@ class LocalExecutor:
         # table generations skip the growth retries.  A write starts the
         # plan over from stats-fed caps (a table that grew 1000-fold would
         # otherwise need more doublings than the retry loop allows)
-        self._learned_caps: dict[PlanNode, tuple[tuple, dict[int, int], frozenset]] = {}
+        self._learned_caps: dict[PlanNode, tuple[tuple, dict[int, int], frozenset]] = (
+            cache.learned_caps
+        )
         self.last_retries: list[dict] = []
         # the packed `required` values of the last run: {node id: the size
         # that capacity-sized node truly needed} (an Unnest's output rows)
@@ -178,13 +248,18 @@ class LocalExecutor:
         connectors bump it on every write).  When a table uploads at a new
         generation, its columns of older generations leave the card.  An
         empty table scans as one dead row."""
+        with self._scan_lock:
+            return self._table_page(catalog, table, columns, scan_id)
+
+    def _table_page(self, catalog, table, columns, scan_id) -> Page:
         conn = self.catalogs.get(catalog)
         schema = conn.table_schema(table)
         gen = _generation(conn, table)
         filters = self.scan_filters.get(scan_id, ()) if scan_id is not None else ()
         split = self.split
-        key_of = lambda c: (catalog, table, c, split, filters, gen)
-        live_key = (catalog, table, split, filters, gen)
+        pad = int(self.split_pad_rows or 0)
+        key_of = lambda c: (catalog, table, c, split, pad, filters, gen)
+        live_key = (catalog, table, split, pad, filters, gen)
         missing = [c for c in columns if key_of(c) not in self._table_cols]
         if missing:
             t0 = time.perf_counter()
@@ -198,6 +273,10 @@ class LocalExecutor:
                 pad_to = _pow2(len(next(iter(data.values()))) if data else 0)
             elif self.pad_splits and num_parts > 1:
                 pad_to = _slice_pad(conn, table, num_parts)
+            if pad:
+                # a split-driven morsel: one fixed capacity wins over both
+                # pads above (a filtered morsel only shrinks below it)
+                pad_to = max(pad_to, pad)
             for c in missing:
                 arr = data[c]
                 n_live = len(arr)
@@ -210,7 +289,7 @@ class LocalExecutor:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.last_upload_ms += (time.perf_counter() - t0) * 1e3
-        page_key = (catalog, table, tuple(columns), split, filters, gen)
+        page_key = (catalog, table, tuple(columns), split, pad, filters, gen)
         cached = self._table_pages.get(page_key)
         if cached is not None:
             return cached
@@ -262,17 +341,19 @@ class LocalExecutor:
         generation but `gen` (a loop of writes would otherwise pin one copy
         of the table per write)."""
         stale = lambda k: k[0] == catalog and k[1] == table and k[-1] != gen
-        for cache in (self._table_cols, self._table_pages, self._table_live):
-            for k in [k for k in cache if stale(k)]:
-                del cache[k]
+        with self._scan_lock:
+            for cache in (self._table_cols, self._table_pages, self._table_live):
+                for k in [k for k in cache if stale(k)]:
+                    del cache[k]
 
     def drop_scans(self) -> None:
         """Let go of every cached scan column and page (the out-of-core
         executor calls this between slices, so one slice's working set is
         all that stays on the card)."""
-        self._table_cols.clear()
-        self._table_pages.clear()
-        self._table_live.clear()
+        with self._scan_lock:
+            self._table_cols.clear()
+            self._table_pages.clear()
+            self._table_live.clear()
 
     def drop_table_cache(self, catalog: str, table: str) -> None:
         """Forget every cached generation of `catalog.table` (after a write
@@ -291,7 +372,36 @@ class LocalExecutor:
         values of a prepared statement, one per ir.Param index; every
         binding of one plan shares its learned capacities
         (runtime/fastpath.py)."""
+        from ..ops.cuda import fused_codegen
+
+        t0 = time.perf_counter()
         self.last_upload_ms = 0.0
+        self.last_compile_ms = 0.0
+        self.last_execute_ms = 0.0
+        self.execute_events = {}
+        inputs = self._inputs(plan, remote_pages)
+        stats = {} if self.collect_operator_stats else None
+        with fused_codegen.capture_compiles() as builds:
+            page = self.run_tasks(plan, [(inputs, self.device)], params, stats_rows=stats)[0]
+        self.compile_events.extend(builds)
+        self.last_compile_ms = sum(ev["compile_s"] for ev in builds) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        self.last_execute_ms = max(0.0, wall_ms - self.last_compile_ms)
+        if stats is not None:
+            from ..utils.profiler import PROFILER, signature_of
+
+            self._record_operator_stats(_node_ids(plan), stats, wall_ms)
+            sig = signature_of(plan)
+            self.execute_events[sig] = {
+                "executes": 1, "execute_s": self.last_execute_ms / 1e3,
+                "fallback_executes": 0,
+            }
+            PROFILER.record_execute(sig, self.last_execute_ms / 1e3)
+        return page
+
+    def _inputs(self, plan: PlanNode, remote_pages: Optional[dict[int, Page]]) -> dict:
+        """Input page of every TableScan (uploaded or cached) and
+        RemoteSource leaf of `plan`, keyed by preorder id."""
         inputs: dict[str, Page] = {}
         for i, n in _node_ids(plan).items():
             if isinstance(n, TableScan):
@@ -302,10 +412,42 @@ class LocalExecutor:
                 if remote_pages is None or n.fragment_id not in remote_pages:
                     raise ValueError(f"no input page for fragment {n.fragment_id}")
                 inputs[str(i)] = remote_pages[n.fragment_id]
-        return self.run_tasks(plan, [(inputs, self.device)], params)[0]
+        return inputs
+
+    def _record_operator_stats(self, nodes, rows: dict[int, int], wall_ms=None) -> None:
+        """A run's per-node live rows -> the per-operator summary a worker
+        ships to the coordinator: {nid: {operator, rows, rows_in,
+        output_bytes, invocations}}."""
+        stats: dict[int, dict] = {}
+        for nid, node in nodes.items():
+            if nid not in rows:
+                continue  # inside a fused chain: no counter
+            child_rows = [rows[c] for c in _child_ids(nodes, nid) if c in rows]
+            stats[nid] = {
+                "operator": type(node).__name__,
+                "rows": rows[nid],
+                "rows_in": sum(child_rows) if child_rows else rows[nid],
+                "output_bytes": rows[nid] * _est_row_bytes(node),
+                "invocations": 1,
+            }
+        self.last_operator_stats = stats
+        self.last_execute_wall_ms = wall_ms
+
+    def _estimate_bytes(self, inputs: dict, caps: dict) -> int:
+        """Planned device-memory footprint: the resident input pages plus
+        every capacity-sized node's capacity times a nominal row width."""
+        total = 0
+        for page in inputs.values():
+            for col in page.columns:
+                total += int(col.capacity) * col.data.element_size()
+        ncols = max((len(p.columns) for p in inputs.values()), default=4)
+        for cap in caps.values():
+            total += int(cap) * 8 * ncols
+        return total
 
     def run_tasks(
         self, plan: PlanNode, tasks: list, params: tuple = (), node_rows: Optional[dict] = None,
+        stats_rows: Optional[dict] = None,
     ) -> list[Page]:
         """Run `plan` once per task, `tasks` a list of (inputs, device): one
         task on the CPU or one card, or the D tasks of a distributed
@@ -315,7 +457,11 @@ class LocalExecutor:
         loop reads them, so every task re-runs at the tier the fullest one
         needs.  Returns the tasks' output pages.  `node_rows`, when given, is filled with each node's
         live rows summed over the tasks (the run that returned; unfused, so
-        every node is counted)."""
+        every node is counted).  `stats_rows`, when given, is filled the
+        same way from counters that ride the runs' packed `required`
+        transfers, fused chains kept (collect_operator_stats).  Raises
+        MemoryBudgetExceeded when `memory_budget_bytes` is set and the
+        planned footprint of the first task exceeds it."""
         nodes = _node_ids(plan)
         gens = tuple(
             _generation(self.catalogs.get(n.catalog), n.table)
@@ -330,11 +476,19 @@ class LocalExecutor:
         # the dict: the retry loop below mutates caps in place, and learned
         # dicts must not alias it.
         caps = {nid: _pow2(max(int(c), 1)) for nid, c in caps.items()}
+        budget = self.memory_budget_bytes
+        if budget:
+            est = self._estimate_bytes(tasks[0][0], caps)
+            self.last_estimated_bytes = est
+            if est > budget:
+                raise MemoryBudgetExceeded(
+                    f"task needs ~{est} bytes of device memory, budget is {budget}"
+                )
         # why each re-run of this call happened: {nid: required} of the
         # nodes that overflowed, or {"sort_joins": ids} for failed hash joins
         self.last_retries = []
         for _ in range(12):  # capacity-retry loop
-            outs, required, counted = [], {}, []
+            outs, required, counted, rows = [], {}, [], {}
             for inputs, device in tasks:
                 hook = None
                 if node_rows is not None:
@@ -348,10 +502,15 @@ class LocalExecutor:
                     out_page, req = _trace_plan(
                         plan, inputs, caps, sort_joins, device,
                         node_hook=hook, fuse=node_rows is None,
+                        count_rows=stats_rows is not None,
                     )
                 outs.append(out_page)
                 # ONE device->host transfer per task
                 for key, val in _fetch_required(req).items():
+                    if _STATS_ROWS_BASE <= key < _JOIN_GUARD:
+                        nid = key - _STATS_ROWS_BASE
+                        rows[nid] = rows.get(nid, 0) + val
+                        continue
                     required[key] = max(val, required.get(key, val))
                 del req, hook
             self.last_required = required
@@ -391,6 +550,9 @@ class LocalExecutor:
                     if tight < caps[nid]:
                         caps[nid] = tight
                 self._learned_caps[plan] = (gens, caps, sort_joins)
+                if stats_rows is not None:
+                    stats_rows.clear()
+                    stats_rows.update(rows)
                 if node_rows is not None:
                     node_rows.clear()
                     for live_of in counted:
@@ -403,23 +565,24 @@ class LocalExecutor:
                 caps[nid] = _pow2(max(req, caps[nid] * 2))
         raise RuntimeError(f"capacity retry loop did not converge: {caps}")
 
-    def explain_analyze(self, plan: PlanNode) -> tuple[Page, dict]:
+    def explain_analyze(
+        self, plan: PlanNode, remote_pages: Optional[dict[int, Page]] = None,
+        params: tuple = (),
+    ) -> tuple[Page, dict]:
         """Execute with per-operator observability (the reference's
         OperatorStats rolled up by ExplainAnalyzeOperator).
 
         Returns (page, stats) where stats[nid] = {"rows": int, "ms": float}:
         the plan runs once through execute() (capacities learned, result
         checked), then once more at those capacities with the device
-        synchronized after every node, so each node's time is its own and
-        its row count is its live rows."""
-        page = self.execute(plan)
+        synchronized after every node and every fused chain run operator
+        by operator, so each node's time is its own and its row count is
+        its live rows.  `remote_pages` feeds a plan
+        fragment's RemoteSource leaves (a worker task's distributed EXPLAIN
+        ANALYZE, runtime/worker.py)."""
+        page = self.execute(plan, remote_pages, params)
         _, caps, sort_joins = self._learned_caps[plan]
-        nodes = _node_ids(plan)
-        inputs = {
-            str(i): self.table_page(n.catalog, n.table, n.column_names, n.output_types,
-                                    scan_id=i)
-            for i, n in nodes.items() if isinstance(n, TableScan)
-        }
+        inputs = self._inputs(plan, remote_pages)
         stats: dict[int, dict] = {}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -431,7 +594,21 @@ class LocalExecutor:
             stats[nid] = {"rows": rows, "ms": (now - last[0]) * 1e3}
             last[0] = time.perf_counter()
 
-        _trace_plan(plan, inputs, dict(caps), sort_joins, self.device, node_hook=hook)
+        with param_context(params):
+            _trace_plan(plan, inputs, dict(caps), sort_joins, self.device, node_hook=hook,
+                        fuse=False)
+        if self.collect_operator_stats:
+            # the timing pass is unfused: the inside of a fused chain gets
+            # its counts from it
+            nodes = _node_ids(plan)
+            for nid, st in stats.items():
+                if nid not in self.last_operator_stats:
+                    self.last_operator_stats[nid] = {
+                        "operator": type(nodes[nid]).__name__, "rows": st["rows"],
+                        "rows_in": st["rows"],
+                        "output_bytes": st["rows"] * _est_row_bytes(nodes[nid]),
+                        "invocations": 1,
+                    }
         return page, stats
 
     def _initial_caps(self, nodes, inputs) -> dict[int, int]:
@@ -538,6 +715,26 @@ def _pad_column(arr, t, pad_to: int):
     return np.concatenate([arr, fill]) if len(arr) else fill
 
 
+def _est_row_bytes(node: PlanNode) -> int:
+    """Nominal output-row width for the stats pipeline's output_bytes
+    estimate (strings count as 16 B of dictionary-coded payload + pointer)."""
+    total = 0
+    try:
+        types = node.output_types
+    except Exception:
+        return 8
+    for t in types:
+        if getattr(t, "is_string", False):
+            total += 16
+        else:
+            try:
+                total += int(np.dtype(t.np_dtype).itemsize)
+            except Exception:
+                total += 8
+        total += 1  # validity mask byte
+    return max(total, 1)
+
+
 def _fetch_required(required: dict) -> dict[int, int]:
     """Device scalars -> python ints through one packed transfer (a sync per
     counter would serialize the host against every operator)."""
@@ -608,6 +805,7 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
 def _trace_plan(
     plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
     sort_joins: frozenset = frozenset(), device="cuda", node_hook=None, fuse: bool = True,
+    count_rows: bool = False,
 ):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
@@ -617,7 +815,9 @@ def _trace_plan(
     the rows of a Values node; `node_hook(nid, node, stage)`, when given,
     runs after each node (EXPLAIN ANALYZE's per-operator statistics);
     `fuse=False` keeps every node of a fusible aggregate chain its own
-    (so each gets its hook)."""
+    (so each gets its hook); `count_rows` reports each node's live output
+    rows under _STATS_ROWS_BASE + nid (a fused chain: its Aggregate and its
+    TableScan)."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -679,6 +879,8 @@ def _trace_plan(
         totals = _fused.run(recipe, scan_cols, live)
         key_codes, agg_cols, out_live, n_groups = _fused.assemble(recipe, totals)
         report(nid, n_groups)
+        if count_rows:
+            required[_STATS_ROWS_BASE + scan_nid] = page.live_mask().sum(dtype=torch.int64)
         cols: list[ColumnVal] = []
         for code, ke, (ci, _, _) in zip(key_codes, node.group_keys, recipe.keys):
             cols.append(ColumnVal(code, None, scan_cols[ci].dict, ke.type))
@@ -694,6 +896,8 @@ def _trace_plan(
     def emit(node: PlanNode) -> _Stage:
         nid = counter[0]
         stage = emit_node(node)
+        if count_rows:
+            required[_STATS_ROWS_BASE + nid] = stage.live.sum(dtype=torch.int64)
         if node_hook is not None:
             node_hook(nid, node, stage)
         return stage

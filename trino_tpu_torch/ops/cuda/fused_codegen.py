@@ -26,9 +26,11 @@ for shared memory take global atomics per row.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import threading
+import time
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
@@ -487,6 +489,42 @@ _LOCK = threading.Lock()
 _KERNELS: dict = {}   # (key, device index) -> (nvrtc.Kernel, Generated)
 _BY_RECIPE: dict = {}  # the same, by the recipe's own fields: no source built per call
 _COMPILES: dict = {}  # key -> {"compile_ms", "from", "log"}
+_CAPTURE = threading.local()  # .events: this thread's capture_compiles list
+_IN_FLIGHT = [0]  # builds (NVRTC compile or cubin read) running now
+
+
+def builds_in_flight() -> int:
+    """Kernel builds running in this process right now (0 or 1: builds
+    take the module lock)."""
+    return _IN_FLIGHT[0]
+
+
+@contextlib.contextmanager
+def capture_compiles():
+    """Collect the kernel builds this thread makes inside the block: one
+    {"signature", "compile_s", "cache", "mode"} per recipe NVRTC compiled
+    ("miss") or read from the disk cache ("hit"), also recorded in the
+    process-global ledger (utils/profiler.py).  A recipe already loaded in
+    the process adds nothing; CPU runs build nothing."""
+    outer = getattr(_CAPTURE, "events", None)
+    events: list[dict] = []
+    _CAPTURE.events = events
+    try:
+        yield events
+    finally:
+        _CAPTURE.events = outer
+        if outer is not None:
+            outer.extend(events)
+
+
+def _note_build(name: str, ms: float, cache: str) -> None:
+    from ...utils.profiler import PROFILER
+
+    PROFILER.record_compile(name, ms / 1e3, cache)
+    events = getattr(_CAPTURE, "events", None)
+    if events is not None:
+        events.append({"signature": name, "compile_s": ms / 1e3, "cache": cache,
+                       "mode": "sync"})
 
 
 def kernel_for(recipe, device_index: int):
@@ -505,25 +543,38 @@ def kernel_for(recipe, device_index: int):
         if got is not None:
             _BY_RECIPE[fast] = got
             return got
-        stem = CACHE_DIR / cubin_stem(gen.key, nvrtc.nvrtc_version())
-        cubin_path = Path(f"{stem}.cubin")
-        if cubin_path.exists():
-            cubin = cubin_path.read_bytes()
-            _COMPILES.setdefault(gen.key, {"compile_ms": 0.0, "from": "disk", "log": ""})
-        else:
-            cubin, log, ms = nvrtc.compile_cubin(
-                _with_header(gen.source), f"{gen.name}.cu", _OPTIONS
-            )
-            _COMPILES[gen.key] = {"compile_ms": ms, "from": "nvrtc", "log": log}
-            CACHE_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = Path(f"{stem}.{threading.get_ident()}.tmp")
-            tmp.write_bytes(cubin)
-            tmp.replace(cubin_path)
-            Path(f"{stem}.cu").write_text(gen.source)
-            Path(f"{stem}.log").write_text(log)
-        kern = nvrtc.load_kernel(cubin, gen.name, device_index)
-        _KERNELS[(gen.key, device_index)] = _BY_RECIPE[fast] = (kern, gen)
-        return kern, gen
+        _IN_FLIGHT[0] += 1
+        try:
+            return _build(gen, fast, device_index)
+        finally:
+            _IN_FLIGHT[0] -= 1
+
+
+def _build(gen, fast, device_index: int):
+    """Compile (or read from the disk cache) and load `gen`; the caller
+    holds _LOCK."""
+    stem = CACHE_DIR / cubin_stem(gen.key, nvrtc.nvrtc_version())
+    cubin_path = Path(f"{stem}.cubin")
+    if cubin_path.exists():
+        t0 = time.perf_counter()
+        cubin = cubin_path.read_bytes()
+        _COMPILES.setdefault(gen.key, {"compile_ms": 0.0, "from": "disk", "log": ""})
+        _note_build(gen.name, (time.perf_counter() - t0) * 1e3, "hit")
+    else:
+        cubin, log, ms = nvrtc.compile_cubin(
+            _with_header(gen.source), f"{gen.name}.cu", _OPTIONS
+        )
+        _COMPILES[gen.key] = {"compile_ms": ms, "from": "nvrtc", "log": log}
+        _note_build(gen.name, ms, "miss")
+        CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = Path(f"{stem}.{threading.get_ident()}.tmp")
+        tmp.write_bytes(cubin)
+        tmp.replace(cubin_path)
+        Path(f"{stem}.cu").write_text(gen.source)
+        Path(f"{stem}.log").write_text(log)
+    kern = nvrtc.load_kernel(cubin, gen.name, device_index)
+    _KERNELS[(gen.key, device_index)] = _BY_RECIPE[fast] = (kern, gen)
+    return kern, gen
 
 
 def _with_header(source: str) -> str:

@@ -51,18 +51,18 @@ Recognized config.properties keys:
                                     overflow drops the oldest (counted in
                                     trino_tpu_timeseries_points_dropped_total)
     timeseries.sample-interval-s=1  seconds between sampler ticks
+    node.device=cuda                where the node's tasks run: cuda (the
+                                    card, the default; a node without one
+                                    fails at boot), cuda:N, or cpu
 
 Connector factories (connector.name=):
     tpch (tpch.scale=), tpcds (tpcds.scale=), memory, blackhole,
     parquet (parquet.root=), orc (orc.root=), iceberg (iceberg.root=),
     faker (faker.rows= faker.schema= as JSON)
 
-A copy of the JAX package's module.  The port has no server yet: the
-coordinator / worker boot over these files comes with the control plane
-(ROADMAP A.11), and so does `utils/timeseries.py`, so
-`apply_timeseries_config` raises naming that item.  Catalog files and node
-configs load as in the reference; `load_catalogs` builds the port's
-connectors.
+A copy of the JAX package's module, plus `node.device`.  `python -m
+trino_tpu_torch.server --etc DIR` boots a coordinator or a worker over these
+files; `load_catalogs` builds the port's connectors.
 """
 
 from __future__ import annotations
@@ -198,6 +198,9 @@ class NodeConfig:
         self.timeseries_sample_interval_s = float(
             props.get("timeseries.sample-interval-s", "1")
         )
+        # the device the node's tasks (and a coordinator's root fragment)
+        # run on: the card unless the file asks for the CPU
+        self.device = props.get("node.device", "cuda")
 
 
 def apply_flightrecorder_config(cfg: "NodeConfig") -> None:
@@ -213,9 +216,12 @@ def apply_flightrecorder_config(cfg: "NodeConfig") -> None:
 def apply_timeseries_config(cfg: "NodeConfig") -> None:
     """Push the node's time-series keys onto the process-global store
     (server boot path; tests configure the store directly)."""
-    raise NotImplementedError(
-        "the time-series plane (utils/timeseries.py) is not ported to "
-        "trino_tpu_torch yet (ROADMAP A.11: the control plane)"
+    from ..utils import timeseries as _ts
+
+    _ts.configure(
+        enabled=cfg.timeseries_enabled,
+        ring_size=cfg.timeseries_ring_size,
+        sample_interval_s=cfg.timeseries_sample_interval_s,
     )
 
 

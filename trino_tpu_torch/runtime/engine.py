@@ -31,13 +31,17 @@ host-collected aggregates stay local on a fallback executor, as in the
 reference; no budget and no out-of-core run apply.  EXPLAIN renders the
 distributed plan, EXPLAIN ANALYZE its row counts summed over the tasks.
 
-Not here yet: the result cache, the coordinator's QueryInfo for distributed
-EXPLAIN ANALYZE, the write journal (ROADMAP A.11).
+The multi-host cluster (runtime/coordinator.py, runtime/worker.py) runs
+statements through a subclass of this engine whose queries go to the
+workers; there, EXPLAIN ANALYZE renders the coordinator's QueryInfo per
+stage (`_explain_analyze_distributed`), and writes journal into the
+coordinator's query journal.  An in-process engine keeps neither.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Optional
 import time as _time
 
 import numpy as np
@@ -149,7 +153,8 @@ class Engine:
         self.user = "user"
         # write-transaction plane (runtime/txn.py): per-thread write sequence
         # of the transaction ids; a FaultInjector (runtime/failure.py) set
-        # here fires the write faults; no journal yet (A.11)
+        # here fires the write faults; a coordinator's statement surface
+        # sets its query journal (runtime/journal.py)
         self.txn_journal = None
         self.write_fault_injector = None
         self._txn_local = threading.local()
@@ -306,7 +311,9 @@ class Engine:
 
         return self.execute_stmt(S.parse_statement(sql))
 
-    def execute_stmt(self, stmt) -> list[tuple]:
+    def execute_stmt(self, stmt, prepared: Optional[dict] = None) -> list[tuple]:
+        """`prepared`: the client-held prepared statements (name -> sql) a
+        protocol request carries; they win over the engine's own."""
         from ..sql import statements as S
 
         # access control at statement dispatch (reference: AccessControl
@@ -336,7 +343,7 @@ class Engine:
             return self.query(stmt.query)
 
         if isinstance(stmt, S.Explain):
-            return self._execute_explain(stmt)
+            return self._execute_explain(stmt, prepared)
 
         if isinstance(stmt, S.CreateTable):
             from ..data.types import parse_type
@@ -495,7 +502,7 @@ class Engine:
             return [(1,)]
 
         if isinstance(stmt, S.ExecuteStmt):
-            sql_text = self._resolve_prepared(stmt.name)
+            sql_text = self._resolve_prepared(stmt.name, prepared)
             from .fastpath import NotFastpath
 
             try:
@@ -558,7 +565,7 @@ class Engine:
             fp = self._fastpath = FastPath(self)
         return fp
 
-    def _explain_execute(self, stmt) -> list[tuple]:
+    def _explain_execute(self, stmt, prepared: Optional[dict] = None) -> list[tuple]:
         """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the fast path's plan
         and a `-- fastpath:` footer with the plan-cache disposition (hit |
         miss | bypass) and the binding split; the substitute-and-replan plan
@@ -567,7 +574,7 @@ class Engine:
         from .fastpath import NotFastpath
 
         ex_stmt = stmt.execute
-        sql_text = self._resolve_prepared(ex_stmt.name)
+        sql_text = self._resolve_prepared(ex_stmt.name, prepared)
         fp = self.fastpath()
         t0 = _time.perf_counter()
         try:
@@ -602,19 +609,27 @@ class Engine:
         )
         return [(line,) for line in text]
 
-    def _execute_explain(self, stmt) -> list[tuple]:
+    def _explain_analyze_distributed(self, query):
+        """Override point: the multi-host coordinator's statement surface
+        (runtime/coordinator.py _StatementSurface) returns its QueryInfo —
+        per-stage plans, operator stats, wall intervals — here.  The
+        in-process engine has none and uses its executor."""
+        return None
+
+    def _execute_explain(self, stmt, prepared: Optional[dict] = None) -> list[tuple]:
         """EXPLAIN [ANALYZE] in the session's explain_format (text | json).
         ANALYZE runs the plan once with per-operator row counts and times
         (LocalExecutor.explain_analyze); a distributed plan's counts are
-        summed over its tasks (SpmdExecutor.explain_analyze)."""
+        summed over its tasks (SpmdExecutor.explain_analyze); on a
+        coordinator, the cluster's QueryInfo is rendered per stage."""
         import json as _json
 
         from ..plan.nodes import plan_to_obj
 
         if stmt.execute is not None:
-            return self._explain_execute(stmt)
+            return self._explain_execute(stmt, prepared)
         if stmt.statement is not None:
-            return self._explain_write(stmt)
+            return self._explain_write(stmt, prepared)
         fmt = str(self.session.get("explain_format") or "text").lower()
         plan = self.plan(stmt.query)
         if not stmt.analyze:
@@ -623,6 +638,14 @@ class Engine:
             return [(line,) for line in format_plan(plan).splitlines()]
 
         t0 = _time.perf_counter()
+        info = self._explain_analyze_distributed(stmt.query)
+        if info is not None:
+            wall = _time.perf_counter() - t0
+            if fmt == "json":
+                return [(_json.dumps(info, default=str, indent=2),)]
+            return [
+                (line,) for line in self._render_distributed_analyze(info, wall)
+            ]
         self._apply_kernel_props()
         page, stats = self._executor_for(plan).explain_analyze(plan)
         n_out = len(page.to_pylist())
@@ -661,7 +684,184 @@ class Engine:
             )
         return [(line,) for line in text]
 
-    def _explain_write(self, stmt) -> list[tuple]:
+    @staticmethod
+    def _render_distributed_analyze(info: dict, wall_s: float) -> list[str]:
+        """Trino-style per-fragment EXPLAIN ANALYZE text from a coordinator
+        QueryInfo: each stage's annotated plan under a Fragment header with
+        its wall interval, then the slowest operator across all stages."""
+        text: list[str] = []
+        slowest = None  # (ms, operator, stage_id, nid)
+        for st in info.get("stages") or []:
+            hdr = f"Fragment {st['stage_id']} [{st['output_kind']}]"
+            iv = st.get("wall_interval_s")
+            if iv:
+                hdr += f"  wall: {iv[0] * 1e3:.0f}..{iv[1] * 1e3:.0f} ms"
+            hdr += f"  tasks: {len(st.get('tasks') or [])}"
+            text.append(hdr)
+            text.extend("  " + ln for ln in st.get("plan") or [])
+            for nid, s in (st.get("operators") or {}).items():
+                ms = s.get("ms")
+                if ms is not None and (slowest is None or ms > slowest[0]):
+                    slowest = (ms, s.get("operator", "?"), st["stage_id"], nid)
+        if slowest is not None:
+            text.append(
+                f"-- slowest operator: {slowest[1]} (stage {slowest[2]}, "
+                f"node {slowest[3]}, {slowest[0]:.1f} ms eager)"
+            )
+        text.append(
+            f"-- output rows: {info.get('output_rows', 0)}, "
+            f"wall: {wall_s * 1e3:.1f} ms, cluster cpu: "
+            f"{info.get('cpu_ms', 0):.1f} ms, stages: {info.get('stage_count', 0)}, "
+            f"task retries: {info.get('task_retries', 0)}"
+        )
+        # memory-governance line (reference: QueryStats peakMemoryReservation
+        # + blocked time): peak task reservation, total blocked-on-memory
+        # wall, and how many tasks ran revocation-spilled
+        text.append(
+            f"-- peak memory: {info.get('peak_memory_bytes', 0)} B, "
+            f"blocked on memory: {info.get('memory_blocked_ms', 0.0):.1f} ms, "
+            f"revocations: {info.get('memory_revocations', 0)}"
+        )
+        # phase ledger footer (reference: QueryStats' queued/analysis/
+        # planning/execution durations): where the wall actually went
+        ledger = info.get("phase_ledger") or {}
+        if ledger:
+            text.append(
+                "-- phases: "
+                + ", ".join(
+                    (
+                        f"{k[: -len('_ms')]} {v:.1f} ms"
+                        if k.endswith("_ms")
+                        else f"{k} {v}"  # plain counts (fallback_executions)
+                    )
+                    for k, v in ledger.items()
+                    if isinstance(v, (int, float))
+                )
+            )
+        # result-cache footer (runtime/resultcache.py): the disposition the
+        # plain query would have had (EXPLAIN ANALYZE itself always
+        # executes) plus the cache key and any fragment-memo seeding
+        cinfo = info.get("cache") or {}
+        if cinfo.get("disposition"):
+            line = f"-- cache: {cinfo['disposition']}"
+            if cinfo.get("reason"):
+                line += f" ({cinfo['reason']})"
+            if cinfo.get("key"):
+                line += f" key={cinfo['key']}"
+            if cinfo.get("memo_hits"):
+                line += f" [fragment memo hits: {cinfo['memo_hits']}]"
+            text.append(line)
+        # crash-recovery footer: present only on queries a restarted
+        # coordinator resumed from the journal (runtime/journal.py)
+        rec = info.get("recovery") or {}
+        if rec.get("resumed"):
+            text.append(
+                f"-- recovery: resumed from journal (replay "
+                f"{rec.get('journal_replay_ms', 0.0):.1f} ms, stages "
+                f"re-read from spool: {rec.get('stages_resumed', 0)}, "
+                f"parts re-read: {rec.get('parts_resumed', 0)})"
+            )
+        # split footer: present only under split_driven_scans — how many
+        # morsels the scans enumerated and what the scheduler did with
+        # them (runtime/splits.py)
+        spl = info.get("splits") or {}
+        if spl.get("splits"):
+            line = (
+                f"-- splits: {spl.get('splits', 0)} total over "
+                f"{spl.get('stages', 0)} scan stage(s), pad "
+                f"{spl.get('pad_rows', 0)} rows "
+                f"(completed: {spl.get('completed', 0)}, retries: "
+                f"{spl.get('retries', 0)}, steals: {spl.get('steals', 0)}"
+            )
+            if spl.get("precommitted"):
+                line += f", re-read from spool: {spl['precommitted']}"
+            if spl.get("parked"):
+                line += f", park deferrals: {spl['parked']}"
+            text.append(line + ")")
+        # anomaly-sentinel footer: present only when the sentinel flagged
+        # this run against its planhash's rolling baseline (coordinator
+        # _score_anomalies over runtime/history.py baselines)
+        for a in info.get("anomalies") or []:
+            base = info.get("baseline") or {}
+            line = f"-- anomaly: {a.get('kind')}"
+            detail = ", ".join(
+                f"{k} {v}" for k, v in sorted(a.items()) if k != "kind"
+            )
+            if detail:
+                line += f" ({detail})"
+            if base.get("samples"):
+                line += f" [baseline: {base['samples']} runs]"
+            text.append(line)
+        # fleet footer: present only on queries a surviving fleet member
+        # adopted from a dead peer's journal (runtime/fleet.py)
+        flt = info.get("fleet") or {}
+        if flt.get("adopted"):
+            text.append(
+                f"-- fleet: adopted from {flt.get('adopted_from')} by "
+                f"{flt.get('coordinator_id')} (stages re-read from spool: "
+                f"{flt.get('stages_resumed', 0)}, parts re-read: "
+                f"{flt.get('parts_resumed', 0)})"
+            )
+        # per-kernel compile attribution: the port's only run-time compiles
+        # are kernel 2's NVRTC builds (ops/cuda/fused_codegen.py), one line
+        # per generated kernel a task built or read from the disk cache
+        sigs = info.get("compile_signatures") or {}
+        if not sigs:
+            text.append(
+                "-- compile: none (NVRTC builds of kernel 2 recipes are the "
+                "only compiles; this query built none)"
+            )
+        for sig, s in sigs.items():
+            cache = s.get("cache") or {}
+            cache_txt = ", ".join(
+                f"{k}: {v}" for k, v in sorted(cache.items()) if v
+            )
+            text.append(
+                f"-- compile: NVRTC {sig} x{s.get('compiles', 0)} "
+                f"{s.get('compile_s', 0.0) * 1e3:.1f} ms"
+                + (f" [disk cache: {cache_txt}]" if cache_txt else "")
+            )
+        # roofline footer (coordinator roofline plane over
+        # utils/roofline.py): achieved bandwidth per executed signature
+        # as a fraction of what this device can actually sustain
+        roofline = info.get("roofline") or {}
+        dev = roofline.get("device") or {}
+        for s in roofline.get("signatures") or []:
+            line = (
+                f"-- roofline: {s.get('signature', '?')} "
+                f"{s.get('gflop_per_sec', 0.0):.3f} GFLOP/s, "
+                f"{s.get('gb_per_sec', 0.0):.3f} GB/s achieved over "
+                f"{s.get('execute_ms', 0.0):.1f} ms execute"
+            )
+            if dev.get("hbm_gbps"):
+                line += (
+                    f" ({s.get('pct_of_roofline', 0.0):.1f}% of "
+                    f"{dev['hbm_gbps']:g} GB/s "
+                    f"{dev.get('device_kind', '?')})"
+                )
+            text.append(line)
+        if info.get("device_gb_per_sec") is not None:
+            text.append(
+                f"-- device bandwidth: {info['device_gb_per_sec']:.3f} "
+                f"GB/s achieved query-wide"
+            )
+        # exchange footer (per-stage link accounting folded by the
+        # coordinator): what the exchange plane actually moved and how fast
+        for st in info.get("exchange") or []:
+            if not st.get("bytes"):
+                continue
+            line = (
+                f"-- exchange: stage {st.get('stage_id')} "
+                f"{st.get('bytes', 0)} B over {st.get('wall_ms', 0.0):.1f} "
+                f"ms ({st.get('fetches', 0)} fetches"
+            )
+            if st.get("gb_per_sec") is not None:
+                line += f", {st['gb_per_sec']:.3f} GB/s"
+            line += f", {len(st.get('links') or {})} link(s))"
+            text.append(line)
+        return text
+
+    def _explain_write(self, stmt, prepared: Optional[dict] = None) -> list[tuple]:
         """EXPLAIN [ANALYZE] over a write statement.  Plain EXPLAIN renders
         the source query's plan (if any) plus the write target without
         executing; ANALYZE executes the statement through the transactional
@@ -682,7 +882,7 @@ class Engine:
         if not stmt.analyze:
             return [(line,) for line in text]
         t0 = _time.perf_counter()
-        rows = self.execute_stmt(inner)
+        rows = self.execute_stmt(inner, prepared=prepared)
         wall = _time.perf_counter() - t0
         n = rows[0][0] if rows and rows[0] else 0
         text.append(f"-- output rows: {n}, wall: {wall * 1e3:.1f} ms")
@@ -716,7 +916,9 @@ class Engine:
         if fp is not None:
             fp.invalidate_table(catalog, table)
 
-    def _resolve_prepared(self, name: str) -> str:
+    def _resolve_prepared(self, name: str, prepared: Optional[dict] = None) -> str:
+        if prepared and name in prepared:
+            return prepared[name]
         if name not in self._prepared:
             raise KeyError(f"prepared statement not found: {name}")
         return self._prepared[name]

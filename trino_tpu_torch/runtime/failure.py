@@ -20,8 +20,8 @@ Reference wiring this replaces (SURVEY §3.2):
 
 A copy of the JAX package's module (plain Python).  The port's engine
 consumes the write faults (`write_fault`, `InjectedCommitCrash`) in
-runtime/txn.py; the worker-side hooks wait for the control plane (ROADMAP
-A.11).
+runtime/txn.py; workers (runtime/worker.py) consume the task and exchange
+faults.
 """
 
 from __future__ import annotations

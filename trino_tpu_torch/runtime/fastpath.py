@@ -136,6 +136,10 @@ class FastPath:
         self.last_info: Optional[_Info] = None
         # planner calls made by this fast path (a cached binding makes none)
         self.plans_made = 0
+        # the last EXECUTE's template text and output column names: a
+        # coordinator's client protocol reports them (runtime/coordinator.py)
+        self.last_template: Optional[str] = None
+        self.last_columns: Optional[list] = None
 
     # --------------------------------------------------------------- template
     def _template(self, sql: str):
@@ -293,7 +297,8 @@ class FastPath:
             while len(self._cache) > limit:
                 # the least recently used plan goes first (the reference also
                 # shields templates that recur in the coordinator's query
-                # history; the port has no history store yet, ROADMAP A.11)
+                # history; an engine keeps no history, runtime/history.py
+                # is the coordinator's)
                 del self._cache[next(iter(self._cache))]
                 PLAN_CACHE_EVENTS.labels("evicted").inc()
         PLAN_CACHE_EVENTS.labels("miss").inc()
@@ -323,6 +328,7 @@ class FastPath:
         if not bool(eng.session.get("prepared_fastpath_enabled")):
             raise NotFastpath("prepared_fastpath_enabled=false")
         stmt, n_params = self._template(sql)
+        self.last_template = sql
         if len(param_exprs) != n_params:
             raise ValueError(
                 f"prepared statement takes {n_params} parameters, got {len(param_exprs)}"
@@ -332,6 +338,7 @@ class FastPath:
         # what the process's last statement left
         eng._apply_kernel_props()
         entry = self._lookup(sql, stmt.query, slots)
+        self.last_columns = list(entry.plan.output_names)
         params = self._param_values(entry.slots, slots)
         window_s = float(eng.session.get("execute_batch_window_ms") or 0.0) / 1e3
         if window_s > 0.0 and not analyze:

@@ -197,19 +197,16 @@ PROPERTIES: dict[str, _Prop] = {
         ),
         _Prop(
             "compile_wait_budget_ms", int, 0,
-            "how long a query blocks on the background compile service "
-            "for a fragment's XLA program before executing via the eager "
-            "fallback path (exec/compilesvc.py; the compiled program "
-            "swaps in for later executions of the signature); 0 = wait "
-            "for the compile, bounded only by compile_deadline_s",
+            "accepted and carried in every task payload, no effect yet: "
+            "the port runs plans eagerly and builds kernel 2's NVRTC "
+            "recipes in line; a compile service that could bound the wait "
+            "comes with ROADMAP A.11b (the reference's exec/compilesvc.py)",
             lambda v: v >= 0,
         ),
         _Prop(
             "compile_deadline_s", float, 300.0,
-            "hard per-signature compile deadline: a compile still running "
-            "past this records a typed COMPILE_TIMEOUT ledger entry, "
-            "feeds the signature's circuit breaker, and the query "
-            "proceeds via fallback — never a hung query; 0 disables",
+            "accepted and carried in every task payload, no effect yet "
+            "(see compile_wait_budget_ms; ROADMAP A.11b)",
             lambda v: v >= 0,
         ),
         _Prop(

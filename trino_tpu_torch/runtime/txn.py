@@ -20,8 +20,8 @@ typed WRITE_CONFLICT with bounded recompute-and-retry.
 A copy of the JAX package's module.  The engine's `write_fault_injector`
 (runtime/failure.py FaultInjector) fires COMMIT_CRASH / WRITE_STALL at the
 phase boundaries, and an injected crash leaves staging and table as a real
-kill would.  `txn_journal` stays None: the journal ports with the control
-plane (ROADMAP A.11).
+kill would.  `txn_journal` is None on an engine; a coordinator's statement
+surface sets its query journal (runtime/journal.py).
 """
 
 from __future__ import annotations

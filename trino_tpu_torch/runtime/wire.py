@@ -1,7 +1,7 @@
 """Host-side page wire helpers: pages as framed, compressed column batches.
 
 A page that leaves the card (a spill file of the out-of-core executor,
-exec/spill.py; later the exchange between worker processes, ROADMAP A.11)
+exec/spill.py; the exchange between worker processes, runtime/worker.py)
 is compacted to its live rows on the host, framed and compressed by the C++
 serde (trino_tpu_torch/native, built from the repo's native/pageserde.cpp)
 and rebuilt into a device page by its consumer — the reference's
