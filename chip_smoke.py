@@ -87,7 +87,22 @@ through the client protocol, Q6 through the DB-API driver, a CTAS into a
 memory catalog (against numpy), Q3 under task retry with a failure
 injected, the kernels' calls of Q18 inside the workers' tasks against their
 plain versions, then the cluster test file's statements and the EXPLAIN
-ANALYZE row counts of Q3 at SF 0.01, card cluster against CPU cluster.
+ANALYZE row counts of Q3 at SF 0.01, card cluster against CPU cluster.  The
+`resilience` phase drives the compile plane around kernel 2's NVRTC builds
+(exec/compilesvc.py) through a second such cluster and through the TPC-H
+engine: a cold Q1 build held pending past a 50 ms wait budget runs the
+unfused path (kernel 1, no kernel-2 launch) and is named in QueryInfo, the
+finished build swaps in on the next run (built on the service's pool,
+launched from the query's threads, its totals against `fused.run_plain`),
+COMPILE_FAIL three times opens the breaker, a 0.2 s deadline gives a typed
+COMPILE_TIMEOUT; then a fresh engine starts Q18 at the capacity tiers a
+first one stored (exec/capcache.py) and re-runs nothing; then, under
+retry_policy=TASK, a gray slow producer outrun by hedged fetches (Q3), a
+speculated straggler (Q6), a seeded chaos round (Q1, Q3, Q6, Q18; ERROR,
+TIMEOUT, SLOW, EXCHANGE_DROP, CORRUPT), a worker drained mid-query with zero
+retries (Q3) and a worker killed after its stage output finished (Q18).
+Every result equals the `tpch` phase's, and no fallback may happen before
+the phase or outside its armed faults.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -104,6 +119,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -348,9 +364,10 @@ def segreduce_edges(dev) -> float:
 def fused_case(recipe, cols, live, what: str, got=None) -> float:
     """Kernel 2 against its plain version on the same inputs (`got`: the
     kernel's result when the caller already has it)."""
-    from trino_tpu_torch.ops.cuda import fused
+    from trino_tpu_torch.ops.cuda import fused, fused_codegen
 
     if got is None:
+        fused_codegen.build(recipe, cols[0].data.device.index)
         got = fused.run(recipe, cols, live)
     torch.cuda.synchronize()
     want = fused.run_plain(recipe, cols, live)
@@ -881,6 +898,7 @@ def kernels_phase(engine, dev, n_rows):
         recipe, cols = tk.fused_inputs(engine, sql, by_name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        fused_codegen.build(recipe, cols[0].data.device.index)
         got = fused.run(recipe, cols, None)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
@@ -4199,6 +4217,518 @@ def cluster_phase(engine, scale, tpch_rows):
     return counts, seconds
 
 
+# ------------------------------------------ the compile plane and the drills
+
+RESILIENCE_WORKERS = 3  # DistributedQueryRunner(devices=["cuda:0"] * 3), as in `cluster`
+RESILIENCE_BUDGET_MS = 50  # compile_wait_budget_ms of the fallback runs
+RESILIENCE_DEADLINE_S = 0.2  # compile_deadline_s of the timeout run
+# every injected delay (COMPILE_SLOW, SLOW, GRAY_SLOW) waits on a gate the
+# script opens once it is done with the straggler: this is its upper bound
+RESILIENCE_DELAY_MS = 60_000
+CHAOS_SEED = 2  # its schedule over CHAOS_QUERIES arms all five modes
+CHAOS_QUERIES = ("q01", "q03", "q06", "q18")
+FALLBACK_REASONS = ("compile_wait", "compile_timeout", "compile_error", "breaker_open")
+
+
+def gate_faults(injectors, method: str) -> threading.Event:
+    """Make the injectors' `method` faults (compile_fault, task_fault,
+    link_fault) wait on the returned gate, at most their delay, instead of
+    sleeping: the script opens it when it is done with the straggler."""
+    gate = threading.Event()
+    for inj in injectors:
+        plain = getattr(type(inj), method)
+        setattr(inj, method, lambda *a, _p=plain, _i=inj, **kw: _p(_i, *a, **dict(kw, sleep=gate.wait)))
+    return gate
+
+
+def ungate_faults(injectors, method: str) -> None:
+    """Undo gate_faults: the injectors' faults sleep again."""
+    for inj in injectors:
+        inj.__dict__.pop(method, None)
+
+
+def fallbacks_total() -> int:
+    from trino_tpu_torch.exec.compilesvc import FALLBACKS
+
+    return int(sum(FALLBACKS.value(r) for r in FALLBACK_REASONS))
+
+
+def breaker_failures() -> int:
+    from trino_tpu_torch.exec.compilesvc import SERVICE
+
+    return sum(e["failures"] for e in SERVICE.breaker.snapshot().values())
+
+
+def hold_stage(workers, fragment_id: int):
+    """Every task of fragment `fragment_id` waits on the returned gate as it
+    starts (at the workers' fault hook, outside any lock of the worker):
+    the script decides when the stage runs.  Returns (gate, the held task
+    ids)."""
+    gate, held = threading.Event(), []
+    tag = f"_f{fragment_id}_"
+    for w in workers:
+        inj = w.fault_injector
+        plain = type(inj).task_fault
+
+        def hook(task_id, sleep=time.sleep, _p=plain, _i=inj):
+            if tag in task_id:
+                held.append(task_id)
+                if not gate.wait(timeout=120):
+                    raise RuntimeError("the drill's gate never opened")
+            return _p(_i, task_id, sleep=sleep)
+
+        inj.task_fault = hook
+    return gate, held
+
+
+def heal_links(runner) -> None:
+    """Forget every worker's link grades and wait until the coordinator's
+    link matrix shows no impaired link: an impaired link steers placement
+    away from its workers (runtime/coordinator.py _steer_by_links), and a
+    later drill needs a task on every worker."""
+    for w in runner.workers:
+        w.link_health.reset()
+    wait_for(lambda: not any(cell.get("state") in ("SUSPECT", "DEAD")
+                             for row in runner.coordinator.link_matrix().values()
+                             for cell in row.values()),
+             "the graded links never healed", 30)
+
+
+def last_worker_stage(coord, qid) -> int:
+    """The fragment of a finished query's worker stage that started last:
+    the consumer of every other worker stage's output."""
+    times = coord.queries[qid]["stage_times"]
+    return max(times, key=lambda f: times[f][0])
+
+
+def wait_for(pred, what: str, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"resilience: {what}")
+        time.sleep(0.02)
+
+
+def compile_plane_checks(run_q1, injectors, set_session, what: str, last_fallbacks) -> dict:
+    """The compile plane around kernel 2 on one path (the cluster or the
+    local engine): a build held pending past the wait budget falls back to
+    the unfused path (kernel 2 0 launches, kernel 1 more than 0), the
+    finished kernel swaps in on the next run (its totals against
+    fused.run_plain, built on the service's pool and launched from the
+    query's thread), COMPILE_FAIL three times opens the breaker, and a
+    deadline below the injected delay gives a typed COMPILE_TIMEOUT.  Rows
+    equal the tpch phase's every time (run_q1 checks them)."""
+    from trino_tpu_torch.exec import compilesvc
+    from trino_tpu_torch.ops.cuda import fused, fused_codegen
+
+    svc = compilesvc.SERVICE
+    out = {}
+    run_q1("warm-up")  # scan slices uploaded: the runs below are warm
+    fused_codegen.clear_cache()  # the next build is a cold NVRTC compile
+    # 1. a pending build: the unfused path answers
+    gate = gate_faults(injectors, "compile_fault")
+    set_session(RESILIENCE_BUDGET_MS, 300.0)
+    for inj in injectors:
+        inj.arm(task_id="*", mode="COMPILE_SLOW", delay_ms=RESILIENCE_DELAY_MS)
+    before, fb0 = kernel_counts(), fallbacks_total()
+    out["fallback_warm_ms"] = run_q1("fallback")
+    after = kernel_counts()
+    if gate.is_set():
+        fail(f"resilience {what}: the build was released before the fallback run returned")
+    if after["fused_pipeline"] != before["fused_pipeline"]:
+        fail(f"resilience {what}: kernel 2 launched while its build was pending")
+    if after["segment_reduce"] <= before["segment_reduce"]:
+        fail(f"resilience {what}: the fallback did not run kernel 1")
+    reasons = last_fallbacks()
+    if not reasons.get("compile_wait") or fallbacks_total() <= fb0:
+        fail(f"resilience {what}: the fallback was not named ({reasons})")
+    out["fallback_reasons"] = reasons
+    # 2. the build finishes on the service's pool; the next run launches it
+    builds, real_build = [], fused_codegen.build
+
+    def recorded_build(recipe, device_index):
+        info = real_build(recipe, device_index)
+        builds.append((threading.current_thread().name, info))
+        return info
+
+    fused_codegen.build = recorded_build
+    try:
+        gate.set()
+        svc.drain(timeout_s=300)
+    finally:
+        fused_codegen.build = real_build
+    for inj in injectors:
+        inj.clear()
+    made = [(t, info) for t, info in builds if info is not None]
+    if not made or not all(t.startswith("compile-svc") for t, _ in made):
+        fail(f"resilience {what}: no build on the compile service's pool: {builds}")
+    out["cold_compile_ms"] = {info["signature"]: info["compile_s"] * 1e3 for _, info in made}
+    out["cold_compile_cache"] = sorted({info["cache"] for _, info in made})
+    calls, real_run = [], fused.run
+
+    def captured_run(recipe, cols, live):
+        got = real_run(recipe, cols, live)
+        calls.append((recipe, cols, live, got, threading.current_thread().name))
+        return got
+
+    before = kernel_counts()
+    fused.run = captured_run
+    try:
+        out["compiled_first_ms"] = run_q1("compiled")
+    finally:
+        fused.run = real_run
+    after = kernel_counts()
+    if after["fused_pipeline"] <= before["fused_pipeline"] or not calls:
+        fail(f"resilience {what}: the built kernel did not swap in")
+    out["compiled_launch_threads"] = sorted({c[4] for c in calls})
+    out["compiled_max_abs_err"] = max(
+        fused_case(r, c, lv, f"resilience {what} compiled q01", got=g) for r, c, lv, g, _ in calls)
+    del calls
+    out["compiled_warm_ms"] = run_q1("compiled warm")
+    # 3. a build that fails every time: the breaker opens, the rows stay right
+    fused_codegen.clear_cache()
+    for inj in injectors:
+        inj.arm(task_id="*", mode="COMPILE_FAIL", count=10)
+    sig = None
+    for _ in range(svc.breaker.threshold):
+        run_q1("compile_fail")
+        failed = [s for s, n in last_fallbacks(signatures=True).items() if n.get("compile_error")]
+        sig = failed[0] if failed else sig
+    if sig is None or svc.breaker.state(sig) != "OPEN":
+        fail(f"resilience {what}: COMPILE_FAIL did not open the breaker "
+             f"({svc.breaker.snapshot()})")
+    out["breaker"] = {sig: svc.breaker.state(sig)}
+    for inj in injectors:
+        inj.clear()
+    svc.reset()
+    # 4. a deadline below the injected delay: a typed COMPILE_TIMEOUT
+    gate = gate_faults(injectors, "compile_fault")
+    set_session(0, RESILIENCE_DEADLINE_S)
+    for inj in injectors:
+        inj.arm(task_id="*", mode="COMPILE_SLOW", delay_ms=RESILIENCE_DELAY_MS)
+    t0 = compilesvc.COMPILE_TIMEOUTS.value()
+    out["deadline_ms"] = run_q1("deadline")
+    reasons = last_fallbacks()
+    if compilesvc.COMPILE_TIMEOUTS.value() < t0 + 1 or not reasons.get("compile_timeout"):
+        fail(f"resilience {what}: the deadline gave no typed COMPILE_TIMEOUT ({reasons})")
+    gate.set()
+    svc.drain(timeout_s=300)
+    for inj in injectors:
+        inj.clear()
+    ungate_faults(injectors, "compile_fault")
+    set_session(0, 300.0)
+    svc.reset()
+    return out
+
+
+def resilience_phase(engine, scale, tpch_rows):
+    """The compile plane, the capacity cache, the task-retry drills and the
+    chaos harness on the card at TPC-H `scale`, three workers on cuda:0 as in
+    the `cluster` phase, every result against the tpch phase's rows.
+    Returns (the path's launch counts, phase seconds)."""
+    import tempfile
+
+    from trino_tpu_torch.exec import capcache, compilesvc
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.runtime.failure import FaultInjector
+    from trino_tpu_torch.runtime.health import HEDGED_FETCHES
+    from trino_tpu_torch.testing import DistributedQueryRunner
+    from trino_tpu_torch.testing.chaos import RECOVERABLE_MODES, ChaosRunner
+
+    t_phase = time.perf_counter()
+    queries, ordered = tpch_queries()
+    # no hidden fallback: every earlier phase ran kernel 2 whenever it could
+    if fallbacks_total() or breaker_failures():
+        fail(f"a fallback or a failed build before the resilience phase: "
+             f"{fallbacks_total()} fallbacks, {compilesvc.SERVICE.breaker.snapshot()}")
+    engine.executor.drop_scans()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.set_policy(kernels.KernelPolicy())
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    dev0 = torch.device("cuda", 0)
+    runner = DistributedQueryRunner(num_workers=RESILIENCE_WORKERS, devices=[dev0] * RESILIENCE_WORKERS)
+    runner.register_catalog("tpch", TpchConnector(scale))
+    runner.start()
+    coord = runner.coordinator
+    coord.session.set("result_cache_enabled", "false")  # every run executes on the workers
+    spool = tempfile.mkdtemp(prefix="chip_smoke_spool_")
+    reset_kernel_counts()  # every count to 0 just before the path, read just after
+    try:
+        # ---- the compile plane through the cluster, then the local engine
+        def cluster_q1(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = runner.query(queries["q01"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows_agree(rows, tpch_rows["q01"], "q01", f"resilience cluster {what} vs tpch", ordered)
+            return ms
+
+        def cluster_session(budget_ms, deadline_s):
+            coord.session.set("compile_wait_budget_ms", str(budget_ms))
+            coord.session.set("compile_deadline_s", str(deadline_s))
+
+        def cluster_fallbacks(signatures=False):
+            qi = last_query_info(runner)
+            if signatures:
+                return {s: a.get("fallbacks") or {} for s, a in
+                        (qi.get("compile_signatures") or {}).items()}
+            return dict(qi.get("fallback_reasons") or {})
+
+        t0 = time.perf_counter()
+        cl = compile_plane_checks(cluster_q1, [w.fault_injector for w in runner.workers],
+                                  cluster_session, "cluster", cluster_fallbacks)
+        emit({"phase": "resilience", "step": "compile_plane", "path": "cluster",
+              "workers": RESILIENCE_WORKERS, "correct": True, **cl,
+              "seconds": round(time.perf_counter() - t0, 3)})
+
+        inj = FaultInjector()
+        engine.executor.fault_injector = inj
+
+        def local_q1(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = engine.query(queries["q01"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows_agree(rows, tpch_rows["q01"], "q01", f"resilience local {what} vs tpch", ordered)
+            return ms
+
+        def local_session(budget_ms, deadline_s):
+            engine.session.set("compile_wait_budget_ms", str(budget_ms))
+            engine.session.set("compile_deadline_s", str(deadline_s))
+
+        def local_fallbacks(signatures=False):
+            ev = engine.executor.fallback_events[-1:] if engine.executor.fallback_events else []
+            if signatures:
+                return {e["signature"]: {e["reason"]: 1} for e in ev}
+            return {e["reason"]: 1 for e in ev}
+
+        t0 = time.perf_counter()
+        n_events = len(engine.executor.fallback_events)
+        try:
+            lo = compile_plane_checks(local_q1, [inj], local_session, "local", local_fallbacks)
+        finally:
+            engine.executor.fault_injector = None
+        lo["fallback_events"] = len(engine.executor.fallback_events) - n_events
+        emit({"phase": "resilience", "step": "compile_plane", "path": "local", "correct": True,
+              **lo, "seconds": round(time.perf_counter() - t0, 3)})
+        fallbacks_after_plane = fallbacks_total()
+
+        # ---- the capacity cache: a fresh engine starts at stored tiers
+        t0 = time.perf_counter()
+        caps_dir = tempfile.mkdtemp(prefix="chip_smoke_caps_")
+        os.environ[capcache.ENV] = os.path.join(caps_dir, "caps.json")
+        capcache._mem.clear()
+        def lookups():
+            return {r: capcache._CAPS_LOOKUPS.value(r) for r in ("hit", "miss")}
+
+        try:
+            first = tpch_engine("cuda", scale)
+            before = lookups()
+            rows_agree(first.query(queries["q18"]), tpch_rows["q18"], "q18",
+                       "resilience capcache first engine vs tpch", ordered)
+            first_lookups = {r: n - before[r] for r, n in lookups().items()}
+            first_retries = list(first.executor.last_retries)
+            del first
+            gc.collect()
+            with open(os.environ[capcache.ENV]) as f:
+                stored = [capcache._decode(e) for e in json.load(f).values()]
+            if not stored:
+                fail("resilience capcache: the first engine stored no tiers")
+            if first_lookups["hit"] or not first_lookups["miss"]:
+                fail(f"resilience capcache: the first engine did not start cold: {first_lookups}")
+            capcache._mem.clear()  # the second engine reads the file, as a fresh process would
+            second = tpch_engine("cuda", scale)
+            before = lookups()
+            rows_agree(second.query(queries["q18"]), tpch_rows["q18"], "q18",
+                       "resilience capcache second engine vs tpch", ordered)
+            second_lookups = {r: n - before[r] for r, n in lookups().items()}
+            second_retries = list(second.executor.last_retries)
+            # each plan the second engine ran starts at, and keeps, a stored entry
+            learned = [(caps, joins) for _, caps, joins in second.executor._learned_caps.values()]
+            del second
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.environ[capcache.ENV] = "off"
+            capcache._mem.clear()
+        if second_lookups["miss"] or not second_lookups["hit"]:
+            fail(f"resilience capcache: the second fresh engine missed the stored tiers:"
+                 f" {second_lookups}")
+        if not learned or any(entry not in stored for entry in learned):
+            fail("resilience capcache: the second engine's tiers are not the stored ones")
+        if second_retries:
+            fail(f"resilience capcache: the second fresh engine re-ran: {second_retries}")
+        emit({"phase": "resilience", "step": "capacity_cache", "query": "q18", "correct": True,
+              "entries": len(stored), "first_engine_lookups": first_lookups,
+              "second_engine_lookups": second_lookups,
+              "first_engine_retries": first_retries, "second_engine_retries": second_retries,
+              "seconds": round(time.perf_counter() - t0, 3)})
+
+        # ---- the drills, under retry_policy=TASK with a spooled exchange and
+        # one task per worker and stage (split-driven scans place a stage's
+        # tasks where splits are asked for, and a drill needs a task on its
+        # worker); the scan caches hold the slices of this one split mode
+        coord.session.set("retry_policy", "TASK")
+        coord.session.set("exchange_spool_dir", spool)
+        coord.session.set("split_driven_scans", "false")
+        drills = {}
+
+        def q(name):
+            rows = runner.query(queries[name])
+            rows_agree(rows, tpch_rows[name], name, f"resilience drill {name} vs tpch", ordered)
+
+        # a gray slow producer: its fetches by the other workers answer late
+        t0 = time.perf_counter()
+        q("q03")  # warms this split mode's scan caches
+        # a cold run's fetches wait on their producers, and on a slow host
+        # that grades links: an impaired link steers the next placement
+        # away from its workers, and the slow producer then serves no one
+        heal_links(runner)
+        won0 = HEDGED_FETCHES.value("won")
+        gate = gate_faults([runner.workers[1].fault_injector], "link_fault")
+        for consumer in (0, 2):
+            runner.gray_slow(producer_index=1, delay_ms=RESILIENCE_DELAY_MS, consumer_index=consumer)
+        try:
+            q("q03")
+            if gate.is_set() or HEDGED_FETCHES.value("won") <= won0:
+                fired = runner.workers[1].fault_injector.fired
+                fail("resilience gray slow: the hedge did not win"
+                     f" (hedged fetches {[HEDGED_FETCHES.value(o) for o in ('won', 'lost', 'failed')]},"
+                     f" gray faults fired {sum(m == 'GRAY_SLOW' for m, _ in fired)},"
+                     f" links {json.dumps(coord.link_matrix())[:1500]})")
+        finally:
+            gate.set()
+            runner.workers[1].fault_injector.clear()
+            ungate_faults([runner.workers[1].fault_injector], "link_fault")
+        # the links the late answers graded heal before the next drill: an
+        # impaired link steers the coordinator's placement away from its
+        # workers (runtime/coordinator.py _steer_by_links), which would put
+        # every later task on the one worker left
+        graded = {c: {p: cell["state"] for p, cell in row.items()}
+                  for c, row in coord.link_matrix().items()}
+        heal_links(runner)
+        drills["gray_slow_q03"] = {"hedges_won": HEDGED_FETCHES.value("won") - won0,
+                                   "graded_links": graded,
+                                   "seconds": round(time.perf_counter() - t0, 3)}
+        # a straggler speculated: its backup wins while it sleeps
+        t0 = time.perf_counter()
+        coord.session.set("speculation_enabled", "true")
+        coord.session.set("speculation_quantile", "1.5")
+        spec = coord._m_speculative
+        won0 = spec.value("won")
+        gate = gate_faults([runner.workers[0].fault_injector], "task_fault")
+        runner.inject_task_failure(worker_index=0, mode="SLOW", delay_ms=RESILIENCE_DELAY_MS)
+        try:
+            q("q06")
+            if not any(m == "SLOW" for m, _ in runner.workers[0].fault_injector.fired):
+                fail("resilience speculation: the straggler's fault met no task")
+            if gate.is_set() or spec.value("won") <= won0:
+                fail(f"resilience speculation: no backup won ({spec.value('launched')} launched)")
+        finally:
+            gate.set()
+            runner.workers[0].fault_injector.clear()
+            ungate_faults([runner.workers[0].fault_injector], "task_fault")
+        coord.session.set("speculation_enabled", "false")
+        drills["speculation_q06"] = {"backups_won": spec.value("won") - won0,
+                                     "seconds": round(time.perf_counter() - t0, 3)}
+        # chaos: a seeded schedule of recoverable faults and corrupt frames
+        t0 = time.perf_counter()
+        for w in runner.workers:
+            w.fault_injector.fired.clear()  # what fires from here on is the schedule's
+        chaos = ChaosRunner(runner, seed=CHAOS_SEED, modes=RECOVERABLE_MODES + ("CORRUPT",))
+        for name in CHAOS_QUERIES:
+            rows = chaos.run_query(queries[name])
+            rows_agree(rows, tpch_rows[name], name, f"resilience chaos {name} vs tpch "
+                       f"under {chaos.schedule[-1]}", ordered)
+        fired = sorted(chaos.fired_modes())
+        if len(fired) < 3:
+            fail(f"resilience chaos: only {fired} fired across {chaos.schedule}")
+        heal_links(runner)  # the schedule's dropped fetches graded links too
+        emit({"phase": "resilience", "step": "chaos", "seed": CHAOS_SEED, "correct": True,
+              "queries": list(CHAOS_QUERIES), "schedule": chaos.schedule, "fired": fired,
+              "seconds": round(time.perf_counter() - t0, 3)})
+        # a worker drained mid-query: zero retries.  The last stage's tasks
+        # are held until the coordinator sees the victim DRAINING, so the
+        # victim is running one of them
+        t0 = time.perf_counter()
+        quarantined0 = coord._m_breaker.value("QUARANTINED")
+        q("q03")
+        gate, held = hold_stage(runner.workers, last_worker_stage(coord, list(coord.queries)[-1]))
+        victim = runner.workers[2]
+        try:
+            qid = coord.submit_query(queries["q03"])
+            wait_for(lambda: len(held) >= len(runner.workers), "drain: the stage never started")
+            runner.drain_worker(2)
+            wait_for(lambda: coord.failure_detector.state(victim.url) == "DRAINING",
+                     "drain: the coordinator never saw DRAINING", 30)
+        finally:
+            gate.set()
+        wait_for(lambda: coord.queries[qid]["sm"].done, "drain: the query never finished")
+        ungate_faults([w.fault_injector for w in runner.workers], "task_fault")
+        record = coord.queries[qid]
+        if record["sm"].state != "FINISHED":
+            fail(f"resilience drain: q03 {record['sm'].state}: {record['sm'].error}")
+        rows_agree(record["result"], tpch_rows["q03"], "q03", "resilience drain q03 vs tpch", ordered)
+        if record.get("task_retries", 0) or coord._m_breaker.value("QUARANTINED") != quarantined0:
+            fail(f"resilience drain: {record.get('task_retries')} retries, quarantined")
+        wait_for(lambda: victim.state == "drained" and victim.url not in coord.workers,
+                 "drain: the victim never deregistered", 60)
+        drills["drain_q03"] = {"held_tasks": len(held), "task_retries": 0,
+                               "seconds": round(time.perf_counter() - t0, 3)}
+        # a worker killed after its stage output finished: the last stage's
+        # tasks are held until every other stage finished, then worker 1 dies
+        t0 = time.perf_counter()
+        alive = [w for w in runner.workers if w is not victim]
+        q("q18")
+        last = last_worker_stage(coord, list(coord.queries)[-1])
+        gate, held = hold_stage(alive, last)
+        try:
+            qid = coord.submit_query(queries["q18"])
+            record = coord.queries[qid]
+            wait_for(lambda: len(held) >= len(alive)
+                     and len(record.get("stage_times") or {}) >= 1,
+                     "kill: no stage finished before the last one")
+            finished = sorted(record["stage_times"])
+            runner.kill_worker(runner.workers.index(alive[1]))
+        finally:
+            gate.set()
+        wait_for(lambda: record["sm"].done, "kill: the query never finished")
+        ungate_faults([w.fault_injector for w in alive], "task_fault")
+        if record["sm"].state != "FINISHED":
+            fail(f"resilience kill: q18 {record['sm'].state}: {record['sm'].error}")
+        rows_agree(record["result"], tpch_rows["q18"], "q18", "resilience kill q18 vs tpch", ordered)
+        recovered = record.get("task_retries", 0) + record.get("task_heals", 0)
+        if recovered < 1:
+            fail("resilience kill: the dead worker's tasks were not retried")
+        drills["kill_q18"] = {"finished_before_kill": finished, "held_stage": last,
+                              "task_retries": record.get("task_retries", 0),
+                              "task_heals": record.get("task_heals", 0),
+                              "seconds": round(time.perf_counter() - t0, 3)}
+        emit({"phase": "resilience", "step": "drills", "correct": True, **drills})
+        counts = kernel_counts()
+    finally:
+        runner.stop()
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    # no hidden fallback outside the armed faults
+    if fallbacks_total() != fallbacks_after_plane or breaker_failures():
+        fail(f"resilience: a fallback outside the armed faults "
+             f"({fallbacks_total()} != {fallbacks_after_plane}, "
+             f"{compilesvc.SERVICE.breaker.snapshot()})")
+    for k in ("segment_reduce", "fused_pipeline", "hash_build", "hash_probe"):
+        if counts[k] < 1:
+            fail(f"resilience path never launched {k}: {counts}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "resilience", "step": "summary", "scale": scale,
+          "seconds": round(seconds, 1), "launches": counts})
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -4251,7 +4781,9 @@ def sass_report() -> dict:
         return None
 
     rep = count(build.LIB_PATH, label)
-    for cubin in sorted(fused_codegen.CACHE_DIR.glob("*.cubin")):
+    from trino_tpu_torch.utils import compilecache
+
+    for cubin in sorted(compilecache.ROOT.rglob("*.cubin")):
         rep.update(count(cubin, lambda nm: f"fused_pipeline/{nm}"))
     hash_rows = {k: v for k, v in rep.items() if k.startswith(("hash_build/", "hash_probe/"))}
     rep["hash_kernels_local_memory"] = sum(
@@ -4289,6 +4821,9 @@ def main(argv=None) -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # learned capacities stay in memory in every phase but `resilience`,
+    # which points the capacity cache at a temporary file of its own
+    os.environ["TRINO_TPU_TORCH_CAPS_CACHE"] = "off"
     build.load_library(verbose=args.ptxas)
     info = build.last_build()
     if args.ptxas:
@@ -4322,24 +4857,28 @@ def main(argv=None) -> int:
     lake_counts, lake_s = lake_phase(engine, args.scale, tpch_rows)
     dist_counts, dist_s = distributed_phase(engine, args.scale, tpch_rows)
     cluster_counts, cluster_s = cluster_phase(engine, args.scale, tpch_rows)
+    # read before `resilience`, whose compile-plane drills clear the cubin cache
+    sass = sass_report()
+    resilience_counts, resilience_s = resilience_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
                    "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
                    "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]],
-                   "distributed": dist_counts[r["name"]], "cluster": cluster_counts[r["name"]]}
+                   "distributed": dist_counts[r["name"]], "cluster": cluster_counts[r["name"]],
+                   "resilience": resilience_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
             fail(f"kernel {r['name']} was never launched on the main path")
 
-    emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass_report()})
+    emit({"phase": "sass", "card": smi_line, "atomics_and_local_memory": sass})
     emit({"phase": "timing", "seconds": round(time.perf_counter() - t_start, 1),
           "tpcds_seconds": round(tpcds_s, 1), "tpcds_path_seconds": round(tpcds_path_s, 1),
           "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
           "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
           "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1),
-          "cluster_seconds": round(cluster_s, 1)})
+          "cluster_seconds": round(cluster_s, 1), "resilience_seconds": round(resilience_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

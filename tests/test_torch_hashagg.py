@@ -398,9 +398,14 @@ def test_value_sorted_aggregates_still_raise():
     _, aggs, _, n_groups = relops.group_aggregate(
         [k], [k], [relops.AggSpec("count", distinct=True)], live, 16)
     assert int(n_groups) == 10 and aggs[0][0][:10].tolist() == [1] * 10
-    # a DISTINCT form the reference lacks too still raises
-    with pytest.raises(NotImplementedError, match="DISTINCT sum"):
-        relops.group_aggregate([k], [k], [relops.AggSpec("sum", distinct=True)], live, 16)
+    # sum(DISTINCT) reduces over each value's first occurrence in its group
+    # (every key is a group of its own here)
+    _, aggs, _, _ = relops.group_aggregate(
+        [k], [k], [relops.AggSpec("sum", distinct=True)], live, 16)
+    assert aggs[0][0][:10].tolist() == list(range(10))
+    # a DISTINCT form the port does not take still raises
+    with pytest.raises(NotImplementedError, match="DISTINCT max"):
+        relops.group_aggregate([k], [k], [relops.AggSpec("max", distinct=True)], live, 16)
 
 
 def test_policy_defaults_are_the_cards():

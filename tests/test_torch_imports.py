@@ -89,6 +89,16 @@ CLUSTER_MODULES = (
 )
 
 
+# the compile plane and the chaos harness, and the modules they changed:
+# each must be walked too
+COMPILE_PLANE_MODULES = (
+    "trino_tpu_torch.exec.compilesvc", "trino_tpu_torch.exec.capcache",
+    "trino_tpu_torch.utils.compilecache", "trino_tpu_torch.testing.chaos",
+    "trino_tpu_torch.ops.cuda.fused_codegen", "trino_tpu_torch.exec.compiler",
+    "trino_tpu_torch.runtime.wire",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -118,6 +128,8 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert set(FILE_CONNECTOR_MODULES) <= walked, sorted(
         set(FILE_CONNECTOR_MODULES) - walked)
     assert set(CLUSTER_MODULES) <= walked, sorted(set(CLUSTER_MODULES) - walked)
+    assert set(COMPILE_PLANE_MODULES) <= walked, sorted(
+        set(COMPILE_PLANE_MODULES) - walked)
 
 
 def test_no_refusal_names_the_nested_value_family():
@@ -310,3 +322,21 @@ def test_cuda_entry_points_raise_without_a_device():
         DistributedQueryRunner(num_workers=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistributedQueryRunner(num_workers=2, devices=["cuda:0"] * 2)
+    # the chaos harness's cluster runs on the card unless told otherwise
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.testing import make_chaos_cluster
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_chaos_cluster(MemoryConnector, num_workers=2)
+    # the NVRTC cubin cache belongs to a card; a card's build job through
+    # the compile service fails typed, it does not hang or fall back
+    # silently (the capacity cache is host-only: it has no device path)
+    from trino_tpu_torch.exec.compilesvc import CompileService
+    from trino_tpu_torch.utils import compilecache
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compilecache.cubin_dir(0)
+    out = CompileService(max_workers=1).obtain(
+        ("job", "cuda", 0), "job", lambda: compilecache.cubin_dir(0)
+    )
+    assert out.status == "error" and "no CUDA device" in str(out.error)

@@ -79,6 +79,7 @@ from ..plan.nodes import (
     MatchRecognize, PlanNode, Project, RemoteSource, Sort, TableScan, TopN, Unnest, Values,
     Window,
 )
+from . import capcache
 
 __all__ = [
     "LocalExecutor", "MemoryBudgetExceeded", "ScanCache", "fused_fragment",
@@ -186,13 +187,31 @@ class LocalExecutor:
         self.last_operator_stats: dict[int, dict] = {}
         self.last_execute_wall_ms: Optional[float] = None
         # attribution of the last execute(): NVRTC builds of kernel 2
-        # recipes (utils/profiler.py; the port's only run-time compiles),
-        # the wall spent on them and on the rest of the call, and the run
-        # per plan signature
+        # recipes (utils/profiler.py; the port's only run-time compiles) and
+        # fallback executions, the wall spent waiting on builds and on the
+        # rest of the call, and the run per plan signature
         self.compile_events: list[dict] = []
         self.last_compile_ms = 0.0
         self.last_execute_ms = 0.0
         self.execute_events: dict[str, dict] = {}
+        # the compile plane (exec/compilesvc.py): kernel 2's builds run on
+        # the service's pool.  Budget 0 == wait for the build (bounded only
+        # by the deadline); deadline 0 == none.  Past the budget the query
+        # runs the unfused operator path (its aggregates on kernel 1) and
+        # the built kernel swaps in on the recipe's next execution
+        self.compile_wait_budget_ms = 0
+        self.compile_deadline_s = 0.0
+        self.compile_service = None  # None == the process-global SERVICE
+        # worker tasks set their FaultInjector and task id, so COMPILE_SLOW /
+        # COMPILE_FAIL fire inside this executor's build jobs
+        self.fault_injector = None
+        self.fault_task_id = "local"
+        # every fallback execution appends {signature, mode, reason,
+        # wait_ms} here, mirrored into compile_events (QueryInfo carries it)
+        self.fallback_events: list[dict] = []
+        self.last_fallback_reason: Optional[str] = None
+        self._kernels_ready: set = set()  # service keys whose kernel this executor ran
+        self._fell_back: set = set()  # keys that fell back and have not swapped in
         # dynamic filters: scan node id -> (ScanFilter, ...), applied on the
         # host before upload (exec/dynfilter.py); rows outside a join's
         # build-side key domain never reach the card
@@ -372,32 +391,117 @@ class LocalExecutor:
         values of a prepared statement, one per ir.Param index; every
         binding of one plan shares its learned capacities
         (runtime/fastpath.py)."""
-        from ..ops.cuda import fused_codegen
+        from ..utils.profiler import PROFILER, signature_of
 
         t0 = time.perf_counter()
         self.last_upload_ms = 0.0
         self.last_compile_ms = 0.0
         self.last_execute_ms = 0.0
         self.execute_events = {}
+        n_fallbacks = len(self.fallback_events)
         inputs = self._inputs(plan, remote_pages)
         stats = {} if self.collect_operator_stats else None
-        with fused_codegen.capture_compiles() as builds:
-            page = self.run_tasks(plan, [(inputs, self.device)], params, stats_rows=stats)[0]
-        self.compile_events.extend(builds)
-        self.last_compile_ms = sum(ev["compile_s"] for ev in builds) * 1e3
+        page = self.run_tasks(plan, [(inputs, self.device)], params, stats_rows=stats)[0]
         wall_ms = (time.perf_counter() - t0) * 1e3
         self.last_execute_ms = max(0.0, wall_ms - self.last_compile_ms)
+        # a run that fell back is a degraded execution of each kernel it
+        # fell back on: attributed apart from the kernel's own runs
+        fell_back = {ev["signature"] for ev in self.fallback_events[n_fallbacks:]}
+        for ksig in fell_back:
+            PROFILER.record_execute(ksig, self.last_execute_ms / 1e3, fallback=True)
         if stats is not None:
-            from ..utils.profiler import PROFILER, signature_of
-
             self._record_operator_stats(_node_ids(plan), stats, wall_ms)
             sig = signature_of(plan)
             self.execute_events[sig] = {
                 "executes": 1, "execute_s": self.last_execute_ms / 1e3,
-                "fallback_executes": 0,
+                "fallback_executes": 1 if fell_back else 0,
             }
             PROFILER.record_execute(sig, self.last_execute_ms / 1e3)
         return page
+
+    def _kernel_ready(self, recipe, device) -> bool:
+        """May this run launch kernel 2 for `recipe` on `device`?  The build
+        goes through the compile service (exec/compilesvc.py), deduplicated
+        per recipe, card and kernel policy, within this executor's wait
+        budget and deadline.  False == run the unfused operator path: counted
+        in FALLBACKS by reason and recorded in fallback_events and
+        compile_events, never silently.  A build that fails without an armed
+        COMPILE_FAIL fault raises its error (nvrtc.NvrtcError with the
+        compiler's log) to the query."""
+        from ..ops import kernels as _kernels
+        from ..ops.cuda import fused_codegen
+        from ..runtime.failure import InjectedCompileFailure
+        from ..utils.profiler import PROFILER
+        from . import compilesvc
+
+        dev = torch.device(device)
+        on_card = dev.type == "cuda"
+        idx = -1
+        if on_card:
+            idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        rkey = fused_codegen.recipe_key(recipe)
+        key = (rkey, dev.type, idx, _kernels.policy_key())
+        if key in self._kernels_ready and (
+            not on_card or fused_codegen.loaded(recipe, idx) is not None
+        ):
+            return True
+        sig = f"fused_{rkey[:16]}@" + (f"cuda:{idx}" if on_card else "cpu")
+
+        def job():
+            if on_card:
+                return fused_codegen.build(recipe, idx)
+            # on the CPU nothing is compiled: the job prepares the source
+            fused_codegen.generate(recipe)
+            return None
+
+        svc = self.compile_service or compilesvc.SERVICE
+        budget_ms = int(self.compile_wait_budget_ms or 0)
+
+        def obtain():
+            return svc.obtain(
+                key, sig, job,
+                wait_budget_s=budget_ms / 1e3 if budget_ms > 0 else None,
+                deadline_s=float(self.compile_deadline_s or 0.0),
+                injector=self.fault_injector, fault_task_id=self.fault_task_id,
+            )
+
+        out = obtain()
+        if out.status == "ready" and on_card and fused_codegen.loaded(recipe, idx) is None:
+            # unloaded since it was built (fused_codegen.clear_cache): again
+            svc.forget(key)
+            out = obtain()
+        wait_ms = round(out.waited_s * 1e3, 3)
+        self.last_compile_ms += wait_ms
+        if out.status == "ready":
+            self._kernels_ready.add(key)
+            info = out.result
+            if key in self._fell_back:
+                # swapped in after this executor fell back on it
+                self._fell_back.discard(key)
+                self.compile_events.append({"signature": sig, "mode": "async", "wait_ms": wait_ms})
+            elif info is not None and out.fresh:
+                self.compile_events.append({
+                    "signature": sig, "compile_s": info["compile_s"], "cache": info["cache"],
+                    "mode": "async" if budget_ms > 0 else "sync",
+                })
+            elif info is not None and out.waited_s > 0:
+                # joined another query's build in flight: its wall is the
+                # owner's (a build found finished adds nothing)
+                self.compile_events.append({"signature": sig, "mode": "async", "wait_ms": wait_ms})
+            return True
+        if out.status == "error" and not isinstance(out.error, InjectedCompileFailure):
+            raise out.error
+        reason = out.reason or "compile_wait"
+        compilesvc.FALLBACKS.labels(reason).inc()
+        PROFILER.record_fallback(sig, reason)
+        self.last_fallback_reason = reason
+        event = {"signature": sig, "mode": "fallback", "reason": reason, "wait_ms": wait_ms}
+        if out.status == "timeout":
+            event["error"] = "COMPILE_TIMEOUT"
+        self.compile_events.append(event)
+        self.fallback_events.append(dict(event))
+        self._fell_back.add(key)
+        return False
 
     def _inputs(self, plan: PlanNode, remote_pages: Optional[dict[int, Page]]) -> dict:
         """Input page of every TableScan (uploaded or cached) and
@@ -470,8 +574,15 @@ class LocalExecutor:
         learned = self._learned_caps.get(plan)
         if learned is not None and learned[0] == gens:
             _, caps, sort_joins = learned
+            start = (caps, sort_joins)
         else:
             caps, sort_joins = self._initial_caps(nodes, tasks[0][0]), frozenset()
+            # a fresh process starts at the tiers an earlier one converged
+            # to (exec/capcache.py), when they cover every sized node
+            stored = capcache.load_caps(plan, tasks[0][0], self.device, caps)
+            if stored is not None:
+                caps, sort_joins = stored
+            start = None
         # capacity bucketing: every cap lands on a pow2 tier.  Also snapshots
         # the dict: the retry loop below mutates caps in place, and learned
         # dicts must not alias it.
@@ -502,7 +613,7 @@ class LocalExecutor:
                     out_page, req = _trace_plan(
                         plan, inputs, caps, sort_joins, device,
                         node_hook=hook, fuse=node_rows is None,
-                        count_rows=stats_rows is not None,
+                        count_rows=stats_rows is not None, kernel_gate=self._kernel_ready,
                     )
                 outs.append(out_page)
                 # ONE device->host transfer per task
@@ -550,6 +661,8 @@ class LocalExecutor:
                     if tight < caps[nid]:
                         caps[nid] = tight
                 self._learned_caps[plan] = (gens, caps, sort_joins)
+                if start != (caps, sort_joins):
+                    capcache.store_caps(plan, tasks[0][0], self.device, caps, sort_joins)
                 if stats_rows is not None:
                     stats_rows.clear()
                     stats_rows.update(rows)
@@ -805,7 +918,7 @@ def scan_column_vals(page: Page, scan: TableScan) -> list[ColumnVal]:
 def _trace_plan(
     plan: PlanNode, pages: dict[str, Page], caps: dict[int, int],
     sort_joins: frozenset = frozenset(), device="cuda", node_hook=None, fuse: bool = True,
-    count_rows: bool = False,
+    count_rows: bool = False, kernel_gate=None,
 ):
     """Walk a plan, running each operator eagerly.  Returns (output page,
     required): `required` maps the preorder id of every capacity-sized node
@@ -817,7 +930,9 @@ def _trace_plan(
     `fuse=False` keeps every node of a fusible aggregate chain its own
     (so each gets its hook); `count_rows` reports each node's live output
     rows under _STATS_ROWS_BASE + nid (a fused chain: its Aggregate and its
-    TableScan)."""
+    TableScan); `kernel_gate(recipe, device)`, when given, decides whether a
+    fused chain may launch kernel 2 now (LocalExecutor._kernel_ready, the
+    compile service) — False runs the chain unfused."""
     from ..ops import kernels as _kernels
 
     required: dict[int, torch.Tensor] = {}
@@ -867,6 +982,8 @@ def _trace_plan(
         )
         if recipe is None:
             return None
+        if kernel_gate is not None and not kernel_gate(recipe, page.device):
+            return None  # kernel not built yet: the unfused path runs it
         counter[0] = scan_nid + 1  # consume the whole chain's id range
         _kernels.record_dispatch(
             "fused_pipeline", _kernels.impl_for(page.device),

@@ -15,7 +15,11 @@ dtypes, the key domain D and the stream kinds make the kernel; constants
 a statement re-run with other literals reuses its kernel.  `cache_key` is a
 digest of exactly the compiled-in parts (never of a pointer or a value).
 Kernels are cached in the process and, as cubins, on disk under
-trino_tpu_torch/build/nvrtc/ (delete the directory to clear it).
+trino_tpu_torch/build/nvrtc/, in a directory per target architecture, NVRTC
+release and compute capability (utils/compilecache.py; delete the directory
+to clear it).  `build` compiles and loads, `kernel_for` launches: the
+executor asks the compile service (exec/compilesvc.py) to run `build` off
+the query's path and launches only a kernel that is loaded.
 
 Accumulation routes (`route_for`, by the size of the S x D table): "reg" —
 D = 1, each thread sums in registers over its whole loop; "warp" — each
@@ -26,7 +30,6 @@ for shared memory take global atomics per row.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import hashlib
 import threading
@@ -34,6 +37,7 @@ import time
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
+from typing import Optional
 
 from . import nvrtc
 from .fused import (
@@ -47,7 +51,8 @@ from .fused import (
 
 __all__ = [
     "FusedCodegenError", "Generated", "generate", "cache_key", "constants",
-    "route_for", "cubin_stem", "kernel_for", "compile_info", "clear_cache", "THREADS",
+    "route_for", "cubin_stem", "recipe_key", "loaded", "build", "kernel_for",
+    "compile_info", "clear_cache", "THREADS",
 ]
 
 THREADS = 128
@@ -61,7 +66,6 @@ _OPTIONS = ("--device-int128", "--std=c++17", "--fmad=false", "--ptxas-options=-
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _HEADER = "fused_pipeline.cuh"
-CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "nvrtc"
 
 _DT_PTR = {0: "const int*", 1: "const long long*", 2: "const double*", 3: "const unsigned char*"}
 _COUNT, _ISUM, _FSUM = 0, 1, 2
@@ -167,7 +171,7 @@ def cache_key(recipe) -> str:
     """Digest of what is compiled into a recipe's kernel: the program's
     structure, the column dtypes, D, the stream kinds, the route, the target
     architecture, the compiler options and the fixed sources.  The compiler's
-    own version is added to the name of the cubin on disk (`kernel_for`)."""
+    own version is added to the name of the cubin on disk (`_build`)."""
     structure, _ = _structure(recipe)
     parts = (
         structure,
@@ -184,7 +188,8 @@ def cache_key(recipe) -> str:
 
 
 def cubin_stem(key: str, compiler_version: str) -> str:
-    """File name (without suffix) of a kernel's cubin in CACHE_DIR: its
+    """File name (without suffix) of a kernel's cubin in its cache
+    directory (utils/compilecache.cubin_dir): its
     cache key and the NVRTC version that compiled it."""
     return f"{key}-nvrtc{compiler_version}"
 
@@ -485,96 +490,110 @@ def generate(recipe) -> Generated:
 
 # ------------------------------------------------------------ compile / load
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards the maps below, never held across a compile
 _KERNELS: dict = {}   # (key, device index) -> (nvrtc.Kernel, Generated)
 _BY_RECIPE: dict = {}  # the same, by the recipe's own fields: no source built per call
 _COMPILES: dict = {}  # key -> {"compile_ms", "from", "log"}
-_CAPTURE = threading.local()  # .events: this thread's capture_compiles list
-_IN_FLIGHT = [0]  # builds (NVRTC compile or cubin read) running now
+_KEYS: dict = {}  # (recipe fields, arch) -> cache_key: no digest per run
 
 
-def builds_in_flight() -> int:
-    """Kernel builds running in this process right now (0 or 1: builds
-    take the module lock)."""
-    return _IN_FLIGHT[0]
+def _fields(recipe) -> tuple:
+    return (recipe.program, recipe.table, recipe.domain, tuple(t for t, _ in recipe.streams))
 
 
-@contextlib.contextmanager
-def capture_compiles():
-    """Collect the kernel builds this thread makes inside the block: one
-    {"signature", "compile_s", "cache", "mode"} per recipe NVRTC compiled
-    ("miss") or read from the disk cache ("hit"), also recorded in the
-    process-global ledger (utils/profiler.py).  A recipe already loaded in
-    the process adds nothing; CPU runs build nothing."""
-    outer = getattr(_CAPTURE, "events", None)
-    events: list[dict] = []
-    _CAPTURE.events = events
-    try:
-        yield events
-    finally:
-        _CAPTURE.events = outer
-        if outer is not None:
-            outer.extend(events)
+def recipe_key(recipe) -> str:
+    """`cache_key(recipe)`, remembered per recipe structure: the compile
+    service keys every execution's lookup with it."""
+    k = (_fields(recipe), nvrtc.ARCH)
+    key = _KEYS.get(k)
+    if key is None:
+        key = _KEYS[k] = cache_key(recipe)
+    return key
 
 
-def _note_build(name: str, ms: float, cache: str) -> None:
+def _note_build(name: str, ms: float, cache: str) -> dict:
     from ...utils.profiler import PROFILER
 
     PROFILER.record_compile(name, ms / 1e3, cache)
-    events = getattr(_CAPTURE, "events", None)
-    if events is not None:
-        events.append({"signature": name, "compile_s": ms / 1e3, "cache": cache,
-                       "mode": "sync"})
+    return {"signature": name, "compile_s": ms / 1e3, "cache": cache}
+
+
+def loaded(recipe, device_index: int):
+    """(nvrtc.Kernel, Generated) of `recipe` when it is loaded on the
+    device, else None.  Never builds.  Recipes that differ in constants
+    only share one kernel (constants are kernel arguments)."""
+    fast = _fields(recipe) + (device_index,)
+    got = _BY_RECIPE.get(fast)
+    if got is None:
+        got = _KERNELS.get((recipe_key(recipe), device_index))
+        if got is not None:
+            _BY_RECIPE[fast] = got
+    return got
+
+
+def build(recipe, device_index: int) -> Optional[dict]:
+    """Compile `recipe`'s kernel with NVRTC (or read its cubin from the disk
+    cache, utils/compilecache.py) and load it on the device.  Returns
+    {"signature", "compile_s", "cache" ("miss": NVRTC ran, "hit": read from
+    disk)} for a build it made, None when the kernel was already loaded.
+
+    No lock is held across the compile: the compile service
+    (exec/compilesvc.py) runs this on its pool and deduplicates per recipe,
+    and a query that falls back meanwhile never waits here.  The driver API
+    loads into the calling thread's current context, so this binds the
+    card's primary context first."""
+    if loaded(recipe, device_index) is not None:
+        return None
+    gen = generate(recipe)
+    nvrtc.bind_context(device_index)
+    kern, info = _build(gen, device_index)
+    with _LOCK:
+        _BY_RECIPE[_fields(recipe) + (device_index,)] = _KERNELS.setdefault(
+            (gen.key, device_index), (kern, gen)
+        )
+    return info
 
 
 def kernel_for(recipe, device_index: int):
-    """The loaded kernel of `recipe` on a device: compiled with NVRTC at
-    first use (or read from the disk cache), then kept in the process.
-    Returns (nvrtc.Kernel, Generated).  Raises nvrtc.NvrtcError with the
-    compiler's log when the source does not compile or load."""
-    fast = (recipe.program, recipe.table, recipe.domain, tuple(t for t, _ in recipe.streams),
-            device_index)
-    got = _BY_RECIPE.get(fast)
-    if got is not None:
-        return got
-    gen = generate(recipe)
-    with _LOCK:
-        got = _KERNELS.get((gen.key, device_index))
-        if got is not None:
-            _BY_RECIPE[fast] = got
-            return got
-        _IN_FLIGHT[0] += 1
-        try:
-            return _build(gen, fast, device_index)
-        finally:
-            _IN_FLIGHT[0] -= 1
+    """The loaded kernel of `recipe` on a device: (nvrtc.Kernel, Generated).
+    Launch only: raises when the kernel is not loaded, for `build` (through
+    the compile service, or called directly) is the one place that compiles
+    and loads it."""
+    got = loaded(recipe, device_index)
+    if got is None:
+        raise RuntimeError(
+            f"fused_pipeline: the kernel of recipe {recipe_key(recipe)[:16]} is not"
+            f" loaded on cuda:{device_index}; build it first (fused_codegen.build)"
+        )
+    return got
 
 
-def _build(gen, fast, device_index: int):
-    """Compile (or read from the disk cache) and load `gen`; the caller
-    holds _LOCK."""
-    stem = CACHE_DIR / cubin_stem(gen.key, nvrtc.nvrtc_version())
+def _build(gen, device_index: int):
+    """Compile (or read from the disk cache) and load `gen`: (kernel, the
+    build's record)."""
+    from ...utils import compilecache
+
+    cache_dir = compilecache.cubin_dir(device_index)
+    stem = cache_dir / cubin_stem(gen.key, nvrtc.nvrtc_version())
     cubin_path = Path(f"{stem}.cubin")
     if cubin_path.exists():
         t0 = time.perf_counter()
         cubin = cubin_path.read_bytes()
         _COMPILES.setdefault(gen.key, {"compile_ms": 0.0, "from": "disk", "log": ""})
-        _note_build(gen.name, (time.perf_counter() - t0) * 1e3, "hit")
+        info = _note_build(gen.name, (time.perf_counter() - t0) * 1e3, "hit")
     else:
         cubin, log, ms = nvrtc.compile_cubin(
             _with_header(gen.source), f"{gen.name}.cu", _OPTIONS
         )
         _COMPILES[gen.key] = {"compile_ms": ms, "from": "nvrtc", "log": log}
-        _note_build(gen.name, ms, "miss")
-        CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        info = _note_build(gen.name, ms, "miss")
+        cache_dir.mkdir(parents=True, exist_ok=True)
         tmp = Path(f"{stem}.{threading.get_ident()}.tmp")
         tmp.write_bytes(cubin)
         tmp.replace(cubin_path)
         Path(f"{stem}.cu").write_text(gen.source)
         Path(f"{stem}.log").write_text(log)
-    kern = nvrtc.load_kernel(cubin, gen.name, device_index)
-    _KERNELS[(gen.key, device_index)] = _BY_RECIPE[fast] = (kern, gen)
-    return kern, gen
+    return nvrtc.load_kernel(cubin, gen.name, device_index), info
 
 
 def _with_header(source: str) -> str:
@@ -591,11 +610,12 @@ def compile_info(recipe) -> dict:
 
 
 def clear_cache() -> None:
-    """Forget every loaded kernel and delete the cubins on disk."""
+    """Forget every loaded kernel and delete the cubins on disk (of every
+    card and toolkit class, utils/compilecache.py)."""
+    from ...utils import compilecache
+
     with _LOCK:
         _KERNELS.clear()
         _BY_RECIPE.clear()
         _COMPILES.clear()
-        if CACHE_DIR.exists():
-            for p in CACHE_DIR.iterdir():
-                p.unlink()
+        compilecache.clear()

@@ -543,13 +543,19 @@ def _fused_aggs(
                      add_count(_valid_of(arg, n) & live_s))
                 )
                 continue
-            if spec.fn != "count":
+            if spec.fn not in ("count", "sum", "avg"):
                 raise NotImplementedError(f"DISTINCT {spec.fn}")
-            # a value's first occurrence in its group, found by adjacency
+            # a value's first occurrence in its group, found by adjacency;
+            # count(DISTINCT) counts those rows, sum / avg(DISTINCT) reduce
+            # over them as the plain forms below reduce over valid rows
             prev = torch.cat([data_s[:1], data_s[:-1]])
             first = (new_group | (data_s != prev)) & valid_s
-            recipe.append(("count", add(SegRed("count", None, in_rows(perm, first)))))
-            continue
+            distinct_rows = in_rows(perm, first)
+            if spec.fn == "count":
+                recipe.append(("count", add(SegRed("count", None, distinct_rows))))
+                continue
+        else:
+            distinct_rows = None
         if spec.fn in MOMENT_AGGS:
             # pairwise moments over the rows where BOTH arguments are
             # non-NULL (reference: CorrelationAggregation and friends)
@@ -569,7 +575,10 @@ def _fused_aggs(
         data = arg.data
         # a no-NULL argument shares the live mask itself, so its count and
         # validity reads are deduplicated across the aggregates of the pass
-        valid = live_s if arg.valid is None else arg.valid & live_s
+        if distinct_rows is not None:
+            valid = distinct_rows
+        else:
+            valid = live_s if arg.valid is None else arg.valid & live_s
         res_t = spec.type
         is_int = not data.dtype.is_floating_point
         wide_sum = (

@@ -103,11 +103,12 @@ def _json_default(o):
 
 
 def _svc_compile_inflight() -> int:
-    """Kernel builds running in this process (kernel 2's NVRTC recipes,
-    ops/cuda/fused_codegen.py) — the sampler's `compile_inflight` lane."""
-    from ..ops.cuda import fused_codegen
+    """Kernel builds running or queued in the compile service (kernel 2's
+    NVRTC recipes, exec/compilesvc.py) — the sampler's `compile_inflight`
+    lane."""
+    from ..exec.compilesvc import SERVICE
 
-    return fused_codegen.builds_in_flight()
+    return SERVICE.inflight()
 
 
 class _WorkerInfo:
@@ -2586,8 +2587,8 @@ class Coordinator:
                 "memory_blocked_timeout_s": float(
                     self.session.get("memory_blocked_timeout_s") or 0.0
                 ),
-                # compile resilience plane: accepted and carried to every
-                # task, no effect until a compile service exists (A.11b)
+                # compile resilience plane (exec/compilesvc.py): how long
+                # each task waits for kernel 2's build, and its deadline
                 "compile_wait_budget_ms": int(
                     self.session.get("compile_wait_budget_ms") or 0
                 ),
@@ -2835,6 +2836,13 @@ class Coordinator:
             )
             # the root stage reports operator stats like any worker task
             executor.collect_operator_stats = True
+            # and waits for kernel 2's builds as the session says
+            executor.compile_wait_budget_ms = int(
+                self.session.get("compile_wait_budget_ms") or 0
+            )
+            executor.compile_deadline_s = float(
+                self.session.get("compile_deadline_s") or 0.0
+            )
             if record.get("cancel"):  # e.g. memory kill during the stages
                 raise RuntimeError(
                     record.get("kill_reason") or "Query was canceled"

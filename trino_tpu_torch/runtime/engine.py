@@ -112,6 +112,37 @@ def _host_collected(plan: PlanNode) -> bool:
     )
 
 
+def _compile_lines(events) -> list[str]:
+    """The EXPLAIN ANALYZE `-- compile:` lines of one local run: each NVRTC
+    build of kernel 2, each swap-in of a kernel built in the background and
+    each fallback to the unfused path (exec/compilesvc.py)."""
+    out = []
+    for ev in events:
+        sig = ev.get("signature", "?")
+        if ev.get("mode") == "fallback":
+            out.append(
+                f"-- compile: {sig} fallback ({ev.get('reason', '?')}, waited "
+                f"{ev.get('wait_ms', 0.0):.1f} ms"
+                + (f", {ev['error']}" if ev.get("error") else "") + ")"
+            )
+        elif ev.get("compile_s") is None:
+            out.append(f"-- compile: {sig} async (joined after {ev.get('wait_ms', 0.0):.1f} ms)")
+        else:
+            out.append(
+                f"-- compile: NVRTC {sig} {ev['compile_s'] * 1e3:.1f} ms "
+                f"[disk cache: {ev.get('cache', '?')}]"
+            )
+    return out
+
+
+def _compile_cache_line() -> str:
+    """The footprint of kernel 2's cubin cache on disk (utils/compilecache.py)."""
+    from ..utils.profiler import PROFILER
+
+    disk = PROFILER.disk_cache()
+    return f"-- compile cache: {disk['entries']} cubins, {disk['bytes']} bytes on disk"
+
+
 class Engine:
     """`device` is where table pages live and operators run: the CUDA card by
     default (raises when there is none), the CPU only on request.
@@ -273,9 +304,16 @@ class Engine:
         return self.executor
 
     def _apply_kernel_props(self) -> None:
-        """Session → data-plane kernel policy (ops/kernels.py): re-applied
-        per statement so SET SESSION takes effect immediately."""
+        """Session → data-plane kernel policy (ops/kernels.py) and the
+        compile plane's knobs on the executors (exec/compilesvc.py): how
+        long a query waits for kernel 2's build, and the build's hard
+        deadline.  Re-applied per statement so SET SESSION takes effect
+        immediately."""
         from ..ops import kernels as _kernels
+
+        for ex in {self.executor, self._local_fallback}:
+            ex.compile_wait_budget_ms = int(self.session.get("compile_wait_budget_ms") or 0)
+            ex.compile_deadline_s = float(self.session.get("compile_deadline_s") or 0.0)
 
         _kernels.set_policy(_kernels.KernelPolicy(
             enabled=bool(self.session.get("data_plane_kernels")),
@@ -286,6 +324,15 @@ class Engine:
     def query(self, sql) -> list[tuple]:
         """Run a query, return rows as python tuples (None == NULL)."""
         return self.execute_page(sql).to_pylist()
+
+    def warm_from_history(self, history, limit: int = 8) -> int:
+        """Replay the top-``limit`` recurring FINISHED statements of a
+        QueryHistoryStore, so their kernel 2 builds (through the compile
+        service) and scan uploads are paid before the first client query
+        (runtime/warmup.py); returns how many statements warmed."""
+        from .warmup import warm_from_history as _warm
+
+        return _warm(self.query, history, limit)
 
     def _query_columns(self, query) -> tuple[list, list, list]:
         """(names, types, host column arrays) of a query result — the write
@@ -647,7 +694,9 @@ class Engine:
                 (line,) for line in self._render_distributed_analyze(info, wall)
             ]
         self._apply_kernel_props()
-        page, stats = self._executor_for(plan).explain_analyze(plan)
+        executor = self._executor_for(plan)
+        n_events = len(executor.compile_events)
+        page, stats = executor.explain_analyze(plan)
         n_out = len(page.to_pylist())
         wall = _time.perf_counter() - t0
         if fmt == "json":
@@ -682,6 +731,10 @@ class Engine:
             text.append(
                 f"-- kernel: {impl} {op}" + (f" ({detail})" if detail else "")
             )
+        events = executor.compile_events[n_events:]
+        if events:
+            text.extend(_compile_lines(events))
+            text.append(_compile_cache_line())
         return [(line,) for line in text]
 
     @staticmethod
@@ -816,11 +869,25 @@ class Engine:
             cache_txt = ", ".join(
                 f"{k}: {v}" for k, v in sorted(cache.items()) if v
             )
+            # the compile plane's disposition (exec/compilesvc.py): which
+            # path the tasks took while the kernel was (or was not) built
+            flags = []
+            if s.get("timeouts"):
+                flags.append(f"timeout x{s['timeouts']}")
+            fb = s.get("fallbacks") or {}
+            if fb:
+                flags.append(
+                    "fallback " + ", ".join(f"{r}: {c}" for r, c in sorted(fb.items()))
+                )
+            if (s.get("modes") or {}).get("async"):
+                flags.append("async")
             text.append(
                 f"-- compile: NVRTC {sig} x{s.get('compiles', 0)} "
                 f"{s.get('compile_s', 0.0) * 1e3:.1f} ms"
                 + (f" [disk cache: {cache_txt}]" if cache_txt else "")
+                + (f" [{'; '.join(flags)}]" if flags else "")
             )
+        text.append(_compile_cache_line())
         # roofline footer (coordinator roofline plane over
         # utils/roofline.py): achieved bandwidth per executed signature
         # as a fraction of what this device can actually sustain

@@ -511,7 +511,7 @@ class FaultInjector:
         if rule is None:
             return
         if rule.mode == "COMPILE_FAIL":
-            raise RuntimeError(f"injected compile failure for task {task_id}")
+            raise InjectedCompileFailure(f"injected compile failure for task {task_id}")
         if rule.delay_ms:
             sleep(rule.delay_ms / 1000.0)
 
@@ -546,6 +546,14 @@ class FaultInjector:
         MEMORY_PRESSURE, consumed at arm time by the worker handler)."""
         with self._lock:
             self.fired.append((mode, task_id))
+
+
+class InjectedCompileFailure(RuntimeError):
+    """An armed COMPILE_FAIL fault, raised inside a compile-service build.
+
+    The only build failure a query may survive by falling back: any other
+    error from a kernel build is a fault of the port and goes to the query
+    (exec/compilesvc.py, exec/compiler.py `_kernel_ready`)."""
 
 
 class InjectedCommitCrash(RuntimeError):

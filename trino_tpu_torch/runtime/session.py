@@ -197,16 +197,18 @@ PROPERTIES: dict[str, _Prop] = {
         ),
         _Prop(
             "compile_wait_budget_ms", int, 0,
-            "accepted and carried in every task payload, no effect yet: "
-            "the port runs plans eagerly and builds kernel 2's NVRTC "
-            "recipes in line; a compile service that could bound the wait "
-            "comes with ROADMAP A.11b (the reference's exec/compilesvc.py)",
+            "how long a query (each of its tasks) waits for kernel 2's NVRTC "
+            "build of a recipe in the compile service (exec/compilesvc.py); "
+            "past it the query runs the unfused operator path (kernel 1), "
+            "counted and named in QueryInfo, and the built kernel swaps in "
+            "on the next execution (0 = wait for the build)",
             lambda v: v >= 0,
         ),
         _Prop(
             "compile_deadline_s", float, 300.0,
-            "accepted and carried in every task payload, no effect yet "
-            "(see compile_wait_budget_ms; ROADMAP A.11b)",
+            "hard deadline of a kernel 2 build, from its start: a build past "
+            "it releases its waiters with a typed COMPILE_TIMEOUT and they "
+            "run the unfused path (0 = no deadline)",
             lambda v: v >= 0,
         ),
         _Prop(

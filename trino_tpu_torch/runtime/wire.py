@@ -20,9 +20,11 @@ so every row lands in the part the reference's uint64 hash picks.
 
 from __future__ import annotations
 
+import datetime
 import json
 import struct
 import zlib
+from decimal import Decimal
 from typing import Optional, Sequence
 
 import numpy as np
@@ -117,18 +119,41 @@ def _to_host(tensors: Sequence[Optional[torch.Tensor]]) -> list[Optional[np.ndar
     return out
 
 
+def _to_json(v):
+    """A dictionary value of an array, map or row column as JSON data:
+    tuples (array elements, a map's key-sorted (key, value) pairs, a row's
+    fields) as lists, decimals and dates tagged so they come back typed."""
+    if isinstance(v, (tuple, list)):
+        return [_to_json(x) for x in v]
+    if isinstance(v, Decimal):
+        return {"$dec": str(v)}
+    if isinstance(v, datetime.date):
+        return {"$date": v.isoformat()}
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def _from_json(o):
+    """Inverse of _to_json: lists come back as tuples, the canonical form
+    of a dictionary value (data/page.py Dictionary.encode_objects)."""
+    if isinstance(o, list):
+        return tuple(_from_json(x) for x in o)
+    if isinstance(o, dict):
+        if "$dec" in o:
+            return Decimal(o["$dec"])
+        if "$date" in o:
+            return datetime.date.fromisoformat(o["$date"])
+    return o
+
+
 def _host_columns(page: Page, extra: Sequence[torch.Tensor] = ()):
     """(datas, valids, datas2, idx, extras): the live rows of every column
-    on the host, strings as their values, arrays as JSON text (codes are
-    process-local; wire_to_page re-encodes into the receiver's dictionary),
-    plus `extra` device tensors of the page's capacity brought along in
-    the same transfer (full length, not compacted)."""
-    for col in page.columns:
-        if col.type.is_map or col.type.is_row:
-            raise NotImplementedError(
-                f"{col.type.name} columns do not cross the wire (the page format "
-                "carries scalars, strings and arrays)"
-            )
+    on the host, strings as their values, arrays, maps and rows as JSON
+    text (codes are process-local; wire_to_page re-encodes into the
+    receiver's dictionary), plus `extra` device tensors of the page's
+    capacity brought along in the same transfer (full length, not
+    compacted)."""
     flat: list = [page.live_mask()]
     for c in page.columns:
         flat.extend((c.data, c.valid, c.data2))
@@ -140,14 +165,17 @@ def _host_columns(page: Page, extra: Sequence[torch.Tensor] = ()):
     for i, col in enumerate(page.columns):
         hdata, hvalid, hdata2 = host[1 + 3 * i: 4 + 3 * i]
         data = hdata[idx]
-        if col.type.is_array:
+        if col.type.is_dict_object:
+            data_obj = np.empty(len(idx), dtype=object)
             if len(idx):
-                vals = col.dictionary.values[
-                    np.clip(data, 0, max(len(col.dictionary) - 1, 0))
-                ]
-                data = np.array([json.dumps(list(v)) for v in vals], dtype=object)
-            else:
-                data = np.array([], dtype=object)
+                # one JSON text per distinct value, gathered by code
+                uniq, inv = np.unique(
+                    np.clip(data, 0, max(len(col.dictionary) - 1, 0)), return_inverse=True
+                )
+                text = np.empty(len(uniq), dtype=object)
+                text[:] = [json.dumps(_to_json(v)) for v in col.dictionary.values[uniq]]
+                data_obj[:] = text[inv]
+            data = data_obj
         elif col.type.is_string:
             data = (
                 col.dictionary.values[np.clip(data, 0, max(len(col.dictionary) - 1, 0))]
@@ -222,10 +250,10 @@ def wire_to_page(
     if total == 0:
         cols = []
         for t in types:
-            data = np.zeros((1,), dtype=object if t.is_string or t.is_array else t.np_dtype)
+            data = np.zeros((1,), dtype=object if t.is_string or t.is_dict_object else t.np_dtype)
             if t.is_string:
                 data[0] = ""
-            elif t.is_array:
+            elif t.is_dict_object:
                 data[0] = ()
             cols.append(Column.from_numpy(t, data, device=dev))
         return Page(tuple(cols), torch.zeros((1,), dtype=torch.bool, device=dev))
@@ -233,7 +261,7 @@ def wire_to_page(
     columns: list[Column] = []
     for i, t in enumerate(types):
         ck, vk, dk = f"c{i:04d}", f"v{i:04d}", f"d{i:04d}"
-        wire_obj = t.is_string or t.is_array  # object lanes on the wire
+        wire_obj = t.is_string or t.is_dict_object  # object lanes on the wire
         datas = [p[ck] for p in parts if ck in p]
         data = (np.concatenate(datas) if datas
                 else np.empty((0,), dtype=object if wire_obj else t.np_dtype))
@@ -251,10 +279,19 @@ def wire_to_page(
             # re-home NULL slots to a real value before dictionary encoding
             data = data.copy()
             data[~valid] = ""
-        if t.is_array:
+        if t.is_dict_object:
+            # JSON text -> canonical tuples, one parse per distinct text;
+            # Column.from_numpy re-encodes them into this side's dictionary
             decoded = np.empty(len(data), dtype=object)
+            parsed: dict = {}
             for j, s in enumerate(data):
-                decoded[j] = tuple(json.loads(s)) if isinstance(s, str) and s else ()
+                if not (isinstance(s, str) and s):
+                    decoded[j] = ()
+                    continue
+                v = parsed.get(s)
+                if v is None:
+                    v = parsed[s] = _from_json(json.loads(s))
+                decoded[j] = v
             data = decoded
         hi = None
         if any(dk in p for p in parts):
@@ -271,7 +308,7 @@ def wire_to_page(
             fill = np.zeros((cap - n,), dtype=object if wire_obj else t.np_dtype)
             if t.is_string:
                 fill[:] = ""
-            elif t.is_array:
+            elif t.is_dict_object:
                 for j in range(len(fill)):
                     fill[j] = ()
             data = np.concatenate([data, fill])

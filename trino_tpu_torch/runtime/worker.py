@@ -826,8 +826,13 @@ class Worker:
         executor.collect_operator_stats = True
         if req.get("memory_budget_bytes"):
             executor.memory_budget_bytes = int(req["memory_budget_bytes"])
-        # the payload's compile_wait_budget_ms / compile_deadline_s have
-        # nothing to act on until a compile service exists (ROADMAP A.11b)
+        # the compile plane (exec/compilesvc.py): the task waits for kernel
+        # 2's build as long as the payload says, and COMPILE_SLOW /
+        # COMPILE_FAIL faults armed on this worker fire inside the build
+        executor.compile_wait_budget_ms = int(req.get("compile_wait_budget_ms") or 0)
+        executor.compile_deadline_s = float(req.get("compile_deadline_s") or 0.0)
+        executor.fault_injector = self.fault_injector
+        executor.fault_task_id = task.task_id
 
         fetched_bytes = 0
         fetched_rows = 0
@@ -1375,11 +1380,12 @@ class Worker:
 
 
 def _compile_inflight() -> int:
-    """Kernel builds running in this process (kernel 2's NVRTC recipes,
-    ops/cuda/fused_codegen.py) — the sampler's `compile_inflight` lane."""
-    from ..ops.cuda import fused_codegen
+    """Kernel builds running or queued in the compile service (kernel 2's
+    NVRTC recipes, exec/compilesvc.py) — the sampler's `compile_inflight`
+    lane."""
+    from ..exec.compilesvc import SERVICE
 
-    return fused_codegen.builds_in_flight()
+    return SERVICE.inflight()
 
 
 def _execute_events(executor) -> dict[str, dict]:

@@ -311,11 +311,19 @@ def main(argv=None) -> int:
         from trino_tpu_torch.ops.cuda import fused_codegen as fc
     except ImportError:  # a checkout whose kernel 2 is not generated per recipe
         fc = None
+
+    def built(recipe):
+        # kernel 2 launches only a loaded kernel: build (or read) it first
+        if fc is not None and hasattr(fc, "build"):
+            fc.build(recipe, dev.index if dev.index is not None else torch.cuda.current_device())
+        return recipe
+
     for qname, sql in (("fused_q1", Q01), ("fused_q6", Q06), ("fused_q1_d168", Q01_D168)):
         recipe, cols = fused_inputs(engine, sql, by_name)
         extra = {"streams": len(recipe.streams), "D": recipe.domain}
         if fc is not None:
             extra["accumulation"] = fc.route_for(recipe)[0]
+        built(recipe)
         emit(qname, lambda: fused.run(recipe, cols, None), fused_bytes(recipe, cols), **extra)
         if fc is None or extra["accumulation"] != "warp":
             continue
@@ -324,6 +332,7 @@ def main(argv=None) -> int:
         fc._WARP_TABLE_BYTES = 0
         fc.clear_cache()
         try:
+            built(recipe)
             emit(f"{qname}_global", lambda: fused.run(recipe, cols, None),
                  fused_bytes(recipe, cols), **{**extra, "accumulation": fc.route_for(recipe)[0]})
         finally:

@@ -14,7 +14,8 @@ fold of the coordinator has nothing to divide and the EXPLAIN ANALYZE
 This module is the process-global ledger behind that attribution:
 
   - record_compile(sig, ...) for every NVRTC build (cache "miss") or cubin
-    read from the disk cache (cache "hit");
+    read from the disk cache (cache "hit"); disk_cache() for that cache's
+    footprint (utils/compilecache.py);
   - record_execute(sig, seconds) per fragment run;
   - GLOBAL histograms ``trino_tpu_compile_seconds`` /
     ``trino_tpu_execute_seconds`` and the
@@ -172,6 +173,14 @@ class CompileProfiler:
                 e = self._sigs.get(sig)
                 return None if e is None else _copy(e)
             return {s: _copy(e) for s, e in self._sigs.items()}
+
+    def disk_cache(self) -> dict:
+        """Footprint of kernel 2's cubin cache on disk (utils/compilecache.py):
+        {"dir", "entries", "bytes"}, walked when asked (the EXPLAIN ANALYZE
+        `-- compile cache:` line)."""
+        from .compilecache import cache_stats
+
+        return cache_stats()
 
     def cache_counts(self) -> dict:
         """Aggregate persistent-cache outcomes across all signatures."""
