@@ -41,7 +41,7 @@ again at SF 0.01 on the card and on `Engine(device="cpu")`, every result and
 final table compared.  The `nested` phase runs arrays, JSON, lambdas, UNNEST
 and MATCH_RECOGNIZE on the TPC-H engine (the words of `part.p_name` and
 `orders.o_comment` through CROSS JOIN UNNEST(split(...)), lambdas per brand,
-JSON paths over 1,000,000 payloads made from a seed in a `nested` memory
+JSON paths over 500,000 payloads made from a seed in a `nested` memory
 catalog, rising price runs per customer, a TopN over unnested words), each
 against a python / numpy reference, then every statement of the port's
 nested-value test files at SF 0.01 on the card and on `Engine(device="cpu")`.
@@ -102,7 +102,26 @@ speculated straggler (Q6), a seeded chaos round (Q1, Q3, Q6, Q18; ERROR,
 TIMEOUT, SLOW, EXCHANGE_DROP, CORRUPT), a worker drained mid-query with zero
 retries (Q3) and a worker killed after its stage output finished (Q18).
 Every result equals the `tpch` phase's, and no fallback may happen before
-the phase or outside its armed faults.
+the phase or outside its armed faults.  The `governance` phase drives the
+cluster's control plane on the card (three workers on `cuda:0` again, the
+script holding tasks at the workers' fault hook, `TaskGate`): Q18 over node
+pools of one and a half nominal reservations answers by revocation and
+sliced re-execution with no kill (the revoke gives back the workers' cached
+columns: `memory_allocated` must fall, and the run must peak under the
+unrevoked run), the low-memory killer fails Q3 with CLUSTER_OUT_OF_MEMORY
+while Q6 answers, corrupt frames of Q3 are refetched; Q18 over disk
+budgets full of fragment memo commits by reclaim, a lost spool partition
+drives a reproduction; a resource group of concurrency 1 queues Q1 behind
+Q6 and cancels a queued Q3 without a trace, and the cluster memory limit
+kills the query that buffers most, which answers out of core; the
+coordinator killed mid-Q18 resumes from its journal (RESUME re-runs no
+committed stage, RESTART re-runs them), a CTAS crashed at its intent
+aborts and one crashed after its commit replays as a no-op; Q1, Q6 and
+TOPN under split-driven scans at SF 1 and 0.1 (more morsels, the same
+count of executed signatures, kernel-2 recipes and capacity tiers), a
+worker killed mid-scan (one morsel retried, no committed morsel read
+again); and two coordinators behind FleetRouter, one killed mid-Q18, the
+other adopting it with no stage recomputed.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -2402,7 +2421,7 @@ NESTED = {
         "order by p_partkey desc, o desc limit 10"),
 }
 NESTED_KERNELS = ("segment_reduce", "hash_build", "radix_select")  # the path's kernels
-EVENTS_ROWS = 1_000_000  # at scale 1
+EVENTS_ROWS = 500_000  # at scale 1 (halved from 1,000,000 to keep the script within its time)
 EVENT_TIERS = ("bronze", "silver", "gold", "platinum")
 EVENT_TAGS = ("new", "sale", "mobile", "web", "promo", "return", "gift", "bulk", "eu", "us",
               "apac", "trial", "vip", "app", "email", "ads", "search", "social", "b2b", "b2c")
@@ -4301,11 +4320,11 @@ def last_worker_stage(coord, qid) -> int:
     return max(times, key=lambda f: times[f][0])
 
 
-def wait_for(pred, what: str, timeout: float = 120.0) -> None:
+def wait_for(pred, what: str, timeout: float = 120.0, phase: str = "resilience") -> None:
     deadline = time.monotonic() + timeout
     while not pred():
         if time.monotonic() > deadline:
-            fail(f"resilience: {what}")
+            fail(f"{phase}: {what}")
         time.sleep(0.02)
 
 
@@ -4729,6 +4748,976 @@ def resilience_phase(engine, scale, tpch_rows):
     return counts, seconds
 
 
+# ---------------------------------------- governance and recovery on the card
+
+GOV_WORKERS = 3  # DistributedQueryRunner(devices=["cuda:0"] * 3), as in `cluster`
+GOV_RESERVE = 1 << 30  # task_memory_reserve_bytes of the memory steps (nominal)
+GOV_NODE_BYTES = 3 << 29  # each worker's node pool: one and a half reservations
+GOV_KILLER_DELAY_S = 0.5  # low_memory_killer_delay_s of the memory steps
+GOV_SPLIT_ROWS = 1 << 19  # split_target_rows: 12 lineitem morsels at SF 1, 2 at SF 0.1
+GOV_SPLIT_SMALL = 0.1  # the second scale of the split step
+GOV_SPLIT_QUERIES = ("q01", "q06", "topn")
+GOV_KILL_SQL = "select count(*), sum(l_partkey) from lineitem"  # columns no step scanned
+GOV_CTAS = ("create table memory.{t} as "
+            "select l_orderkey, l_quantity from lineitem where l_quantity > 45")
+GOV_HOLD_S = 120  # the most a held task waits for the script to release it
+
+
+class TaskGate:
+    """The script's hold on the tasks of a cluster.  Every task a worker runs
+    passes here twice: before its node-pool reservation
+    (`Worker._run_task_inner`, wrapped while the phase runs: the fragment's
+    shape is noted, and `before` may return an event the task waits for,
+    asked again each time it is set, until it returns None) and
+    after it (each worker's fault hook: `started` lists the task, and a task
+    that `hold` matches waits on the gate once `free` of them have passed).
+    Every wait is bounded by GOV_HOLD_S."""
+
+    def __init__(self):
+        self.info: dict = {}  # task id -> {"revocable", "leaf", "worker"}
+        self.started: list = []
+        self.finished: list = []
+        self.held: list = []
+        self.hold = None
+        self.free = 0
+        self.before = None
+        self.gate = threading.Event()
+        self.reached: dict = {}  # worker url -> Event: a held revocable task reserved there
+        self.query = None  # the first new query a task of reached the gate since `arm`
+        self._old: set = set()  # queries with a task started before `arm`
+        self._lock = threading.Lock()
+        self._plain = None
+
+    def first(self, task_id: str) -> bool:
+        """Is this a task of the first query seen since `arm` that had no
+        task before it (which this call may make it)?  A task id is
+        `<query id>_a<attempt>_f...`."""
+        qid = task_id.rsplit("_a", 1)[0]
+        with self._lock:
+            if self.query is None and qid not in self._old:
+                self.query = qid
+            return self.query == qid
+
+    def install(self) -> None:
+        from trino_tpu_torch.plan.nodes import RemoteSource, walk
+        from trino_tpu_torch.plan.serde import plan_from_json
+        from trino_tpu_torch.runtime import worker as wmod
+
+        plain = self._plain = wmod.Worker._run_task_inner
+        gate = self
+
+        def inner(w, task, req, t0):
+            frag = plan_from_json(req["fragment"])
+            with gate._lock:
+                gate.info[task.task_id] = {
+                    "revocable": wmod._fragment_revocable(frag),
+                    "leaf": not any(isinstance(n, RemoteSource) for n in walk(frag)),
+                    "worker": w.url,
+                }
+                before = gate.before
+            while before is not None:
+                ev = before(task.task_id, w.url)
+                if ev is None:
+                    break
+                if not ev.wait(timeout=GOV_HOLD_S):
+                    raise RuntimeError("governance: a task waited for its turn too long")
+                with gate._lock:
+                    before = gate.before
+            try:
+                return plain(w, task, req, t0)
+            finally:
+                with gate._lock:
+                    gate.finished.append(task.task_id)
+
+        wmod.Worker._run_task_inner = inner
+
+    def uninstall(self) -> None:
+        from trino_tpu_torch.runtime import worker as wmod
+
+        if self._plain is not None:
+            wmod.Worker._run_task_inner = self._plain
+            self._plain = None
+
+    def attach(self, workers) -> None:
+        for w in workers:
+            inj = w.fault_injector
+            plain = type(inj).task_fault
+
+            def hook(task_id, sleep=time.sleep, _p=plain, _i=inj, _url=w.url):
+                hold = self.hold
+                wait = hold is not None and hold(task_id)
+                with self._lock:
+                    self.started.append(task_id)
+                    if wait and self.free > 0:
+                        self.free -= 1
+                        wait = False
+                    if wait:
+                        self.held.append(task_id)
+                        if (self.info.get(task_id) or {}).get("revocable"):
+                            self.reached.setdefault(_url, threading.Event()).set()
+                    gate = self.gate
+                if wait and not gate.wait(timeout=GOV_HOLD_S):
+                    raise RuntimeError("governance: the gate never opened")
+                return _p(_i, task_id, sleep=sleep)
+
+            inj.task_fault = hook
+
+    def detach(self, workers) -> None:
+        for w in workers:
+            w.fault_injector.__dict__.pop("task_fault", None)
+
+    def arm(self, hold, free: int = 0, before=None) -> None:
+        with self._lock:
+            self.hold, self.free, self.before = hold, free, before
+            self.held, self.reached, self.query = [], {}, None
+            self._old = {t.rsplit("_a", 1)[0] for t in self.started}
+            self.gate = threading.Event()
+
+    def release(self) -> None:
+        with self._lock:
+            self.hold = self.before = None
+            gate = self.gate
+        gate.set()
+
+    def started_since(self, mark: int) -> list:
+        with self._lock:
+            return list(self.started[mark:])
+
+
+def gov_wait(pred, what: str, timeout: float = 60.0) -> None:
+    wait_for(pred, what, timeout, phase="governance")
+
+
+def wait_port_free(port: int, timeout: float = 15.0) -> None:
+    """Until a listener could bind `port` again (as ThreadingHTTPServer does,
+    SO_REUSEADDR): a restarted coordinator takes the dead one's port."""
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+            return
+        except OSError:
+            time.sleep(0.05)
+        finally:
+            s.close()
+    fail(f"governance: port {port} never freed")
+
+
+def device_memory(dev, reset: bool = False) -> dict:
+    """Allocated and peak allocated bytes of the card (the caching allocator's
+    view; every node of the cluster shares it); `reset` starts a new peak
+    after reading."""
+    got = {"allocated": torch.cuda.memory_allocated(dev),
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return got
+
+
+def drop_cluster_caches(runner, dev) -> None:
+    for w in runner.workers:
+        w.scan_cache.drop_device()
+    for c in runner.coordinators:
+        c.scan_cache.drop_device()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def committed_tasks(spool: str, qid: str) -> list:
+    """Task ids of `qid` whose output committed to the spool."""
+    return [name for name in (os.listdir(spool) if os.path.isdir(spool) else ())
+            if name.startswith(qid + "_")
+            and os.path.exists(os.path.join(spool, name, "COMMITTED"))]
+
+
+def committed_fragments(spool: str, qid: str) -> set:
+    return {task_fragment(t) for t in committed_tasks(spool, qid)}
+
+
+def task_fragment(task_id: str) -> int:
+    """`<query id>_a<attempt>_f<fragment>_p<part>_t<try>` -> fragment."""
+    return int(task_id.rsplit("_f", 1)[1].split("_", 1)[0])
+
+
+def task_part(task_id: str) -> int:
+    return int(task_id.rsplit("_p", 1)[1].split("_", 1)[0])
+
+
+def protocol_rows(got, want) -> list:
+    """Rows read through the client protocol (decimals and dates as text)
+    typed like `want`'s, column by column."""
+    import datetime
+
+    def typed(g, w):
+        if g is None or w is None:
+            return g
+        if isinstance(w, Decimal):
+            return Decimal(str(g))
+        if isinstance(w, datetime.date):
+            return datetime.date.fromisoformat(str(g))
+        if isinstance(w, float):
+            return float(g)
+        if isinstance(w, int) and not isinstance(w, bool):
+            return int(g)
+        return g
+
+    if len(got) != len(want):
+        fail(f"governance: {len(got)} rows through the protocol, {len(want)} wanted")
+    return [tuple(typed(g, w) for g, w in zip(gr, wr)) for gr, wr in zip(got, want)]
+
+
+def gov_runner(scale, dev, **kwargs):
+    """A started cluster of GOV_WORKERS workers on `dev` with TPC-H at
+    `scale` and an empty memory catalog; the result cache off (every run
+    executes), task retry over a spooled exchange in a temporary directory,
+    one task per worker and stage (split-driven scans off) unless a step
+    turns them on."""
+    import tempfile
+
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    runner = DistributedQueryRunner(num_workers=GOV_WORKERS, devices=[dev] * GOV_WORKERS,
+                                    **kwargs)
+    runner.register_catalog("tpch", TpchConnector(scale))
+    runner.register_catalog("memory", MemoryConnector())
+    runner.start()
+    runner.spool = tempfile.mkdtemp(prefix="chip_smoke_gov_spool_")
+    runner.session_props = {
+        "result_cache_enabled": "false", "retry_policy": "TASK",
+        "exchange_spool_dir": runner.spool, "split_driven_scans": "false",
+    }
+    for c in runner.coordinators:
+        for k, v in runner.session_props.items():
+            c.session.set(k, v)
+    return runner
+
+
+def stop_runner(runner, dev) -> None:
+    import shutil
+
+    runner.stop()
+    shutil.rmtree(runner.spool, ignore_errors=True)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def gov_memory(runner, gate, queries, want, ordered, dev) -> dict:
+    """Q18 over node pools of one and a half reservations, by revocation and
+    spill with no kill; the low-memory killer's typed error between two
+    queries that cannot both fit; CORRUPT frames refetched on Q3."""
+    from trino_tpu_torch.runtime import wire
+
+    coord = runner.coordinator
+    s = coord.session
+    out = {}
+
+    def revocable_done(qid, tasks=None):
+        """Have the revocable leaf tasks of `qid` (or `tasks`) all finished?"""
+        if tasks is None:
+            tasks = [t for t in gate.started if t.startswith(qid)
+                     and (gate.info.get(t) or {}).get("revocable")
+                     and (gate.info.get(t) or {}).get("leaf")]
+        return len(tasks) >= GOV_WORKERS and set(tasks) <= set(gate.finished)
+
+    # the unrevoked run: the pools hold every task of Q18 at once.  Peaks
+    # are read twice: while the revocable stage (the lineitem partial
+    # aggregate) runs, and over the whole query, whose last stage no
+    # revocation touches
+    for w in runner.workers:
+        w.memory_pool.set_capacity(1 << 50)
+    s.set("task_memory_reserve_bytes", str(GOV_RESERVE))
+    s.set("low_memory_killer_delay_s", str(GOV_KILLER_DELAY_S))
+    s.set("memory_blocked_timeout_s", "60")
+    drop_cluster_caches(runner, dev)
+    base0 = device_memory(dev, reset=True)
+    t0 = time.perf_counter()
+    qid0 = coord.submit_query(queries["q18"])
+    gov_wait(lambda: revocable_done(qid0), "memory: the unrevoked q18's leaf stage never ended", 300)
+    stage0 = device_memory(dev)
+    record = coord.queries[qid0]
+    gov_wait(lambda: record["sm"].done, "memory: the unrevoked q18 never finished", 300)
+    ms0 = (time.perf_counter() - t0) * 1e3
+    if record["sm"].state != "FINISHED":
+        fail(f"governance memory: unrevoked q18 {record['sm'].state}: {record['sm'].error}")
+    rows_agree(record["result"], want["q18"], "q18", "governance memory q18 unrevoked vs tpch",
+               ordered)
+    end0 = device_memory(dev)
+    revocations0 = sum(w.memory_pool.revocations for w in runner.workers)
+    given0 = sum(w.revoked_device_bytes for w in runner.workers)
+    kills0 = coord.oom_kills
+    if revocations0:
+        fail("governance memory: a revocation in the unrevoked run")
+    # the revoked run: Q18's leaf stages send each worker their tasks at
+    # once into a pool of one and a half reservations.  The revocable ones
+    # (the lineitem partial aggregate) reserve first and are held; then one
+    # other task of the worker reserves and blocks; the pressure outlasts
+    # the killer's delay, the coordinator revokes Q18's revocable leases on
+    # each node (after which the blocked one fits), the worker gives back
+    # its cached columns, and the held tasks, released, run sliced; the
+    # other tasks wait for the release, and then queue for the pool
+    for w in runner.workers:
+        w.memory_pool.set_capacity(GOV_NODE_BYTES)
+    warm = device_memory(dev, reset=True)
+    qa, passed = {}, set()
+
+    def before(task_id, url):
+        """A worker's revocable tasks reserve at once; one other task once
+        a revocable one holds its reservation there; the rest at release."""
+        info = gate.info.get(task_id) or {}
+        if not gate.first(task_id) or info.get("revocable"):
+            return None
+        with gate._lock:
+            reached = gate.reached.setdefault(url, threading.Event())
+            if not reached.is_set():
+                return reached
+            if url not in passed:
+                passed.add(url)
+                return None
+            return gate.gate
+
+    gate.arm(lambda t: gate.first(t) and (gate.info.get(t) or {}).get("revocable", False),
+             before=before)
+    t0 = time.perf_counter()
+    try:
+        qa["id"] = coord.submit_query(queries["q18"])
+        gov_wait(lambda: all(w.memory_pool.revocations >= 1 for w in runner.workers),
+                 "memory: the pools' pressure never revoked on every worker "
+                 f"({[w.memory_pool.snapshot() for w in runner.workers]}; tasks "
+                 f"{[(t, i['revocable'], i['leaf']) for t, i in gate.info.items() if gate.first(t)]})",
+                 60)
+        # from here on a task that waits for memory queues: the later
+        # stages wait for the sliced ones, which outlast a short delay
+        s.set("low_memory_killer_delay_s", str(GOV_HOLD_S))
+        held = list(gate.held)
+        after_revoke = device_memory(dev, reset=True)
+    finally:
+        gate.release()
+    gov_wait(lambda: revocable_done(qa["id"], held), "memory: the revoked tasks never ended", 300)
+    stage1 = device_memory(dev)
+    record = coord.queries[qa["id"]]
+    gov_wait(lambda: record["sm"].done, "memory: the revoked q18 never finished", 300)
+    ms1 = (time.perf_counter() - t0) * 1e3
+    if record["sm"].state != "FINISHED":
+        fail(f"governance memory: revoked q18 {record['sm'].state}: {record['sm'].error}")
+    rows_agree(record["result"], want["q18"], "q18", "governance memory q18 revoked vs tpch",
+               ordered)
+    peak1 = max(after_revoke["peak"], device_memory(dev)["peak"])
+    qi = record.get("query_info") or {}
+    revoked_tasks = int(qi.get("memory_revocations") or 0)
+    revocations = sum(w.memory_pool.revocations for w in runner.workers) - revocations0
+    given = sum(w.revoked_device_bytes for w in runner.workers) - given0
+    if coord.oom_kills != kills0:
+        fail("governance memory: the revoked q18 was answered by a kill")
+    if revocations < GOV_WORKERS or revoked_tasks < GOV_WORKERS:
+        fail(f"governance memory: {revocations} revocations, {revoked_tasks} revoked tasks")
+    if not after_revoke["allocated"] < warm["allocated"]:
+        fail(f"governance memory: memory_allocated did not fall after the revoke "
+             f"({warm['allocated']} -> {after_revoke['allocated']})")
+    if not stage1["peak"] < stage0["peak"]:
+        fail(f"governance memory: the revoked stage peaked at {stage1['peak']} bytes, the "
+             f"unrevoked one at {stage0['peak']}")
+    out["revocation_q18"] = {
+        "node_pool_bytes": GOV_NODE_BYTES, "reserve_bytes": GOV_RESERVE,
+        "revocations": revocations, "revoked_tasks": revoked_tasks, "kills": 0,
+        "cache_bytes_given_back": given,
+        "unrevoked": {"ms": ms0, "base_allocated": base0["allocated"],
+                      "stage_peak_allocated": stage0["peak"],
+                      "peak_allocated": max(stage0["peak"], end0["peak"]),
+                      "end_allocated": end0["allocated"]},
+        "revoked": {"ms": ms1, "allocated_before_revoke": warm["allocated"],
+                    "allocated_after_revoke": after_revoke["allocated"],
+                    "stage_peak_allocated": stage1["peak"], "peak_allocated": peak1},
+    }
+    # the killer: revocation off, two queries that cannot both fit.  Q3's
+    # leaf tasks are held past their reservations (one per worker fits, the
+    # others block), Q6's block behind them; the pressure outlasts the delay
+    # and the largest reservation (Q3) dies
+    s.set("memory_revocation_enabled", "false")
+    s.set("low_memory_killer_delay_s", str(GOV_KILLER_DELAY_S))
+    t0 = time.perf_counter()
+    victim = {}
+    gate.arm(gate.first)
+    try:
+        victim["id"] = coord.submit_query(queries["q03"])
+        gov_wait(lambda: len(gate.held) >= GOV_WORKERS, "memory: q03 never held its pools")
+        other = coord.submit_query(queries["q06"])
+        rec_v, rec_o = coord.queries[victim["id"]], coord.queries[other]
+        gov_wait(lambda: rec_v["sm"].done, "memory: the killer never fired", 60)
+    finally:
+        gate.release()
+    gov_wait(lambda: rec_o["sm"].done, "memory: q06 never finished beside the kill", 120)
+    if rec_v["sm"].state != "FAILED" or "CLUSTER_OUT_OF_MEMORY" not in (rec_v["sm"].error or ""):
+        fail(f"governance killer: q03 {rec_v['sm'].state}: {rec_v['sm'].error}")
+    if rec_o["sm"].state != "FINISHED":
+        fail(f"governance killer: q06 {rec_o['sm'].state}: {rec_o['sm'].error}")
+    rows_agree(rec_o["result"], want["q06"], "q06", "governance killer q06 vs tpch", ordered)
+    if coord.oom_kills != kills0 + 1:
+        fail(f"governance killer: {coord.oom_kills - kills0} kills, not one")
+    out["killer"] = {"victim": "q03", "survivor": "q06", "kills": 1,
+                     "error": (rec_v["sm"].error or "")[:160],
+                     "seconds": round(time.perf_counter() - t0, 3)}
+    s.set("memory_revocation_enabled", "true")
+    s.set("task_memory_reserve_bytes", "0")
+    for w in runner.workers:
+        w.memory_pool.set_capacity(1 << 50)
+    # corrupted frames: every served page frame of the first two fetches
+    # per worker gets a flipped byte; the consumer's crc32 check refetches
+    t0 = time.perf_counter()
+    before_err = wire._TRANSPORT_ERRORS.value()
+    for i in range(GOV_WORKERS):
+        runner.workers[i].fault_injector.fired.clear()
+        runner.inject_task_failure(i, mode="CORRUPT", count=2)
+    try:
+        rows = runner.query(queries["q03"])
+    finally:
+        for w in runner.workers:
+            w.fault_injector.clear()
+    rows_agree(rows, want["q03"], "q03", "governance corrupt q03 vs tpch", ordered)
+    fired = sum(m == "CORRUPT" for w in runner.workers for m, _ in w.fault_injector.fired)
+    detected = wire._TRANSPORT_ERRORS.value() - before_err
+    heal_links(runner)  # the corrupt frames graded links: placement would avoid them
+    if not fired or not detected:
+        fail(f"governance corrupt: {fired} frames corrupted, {detected} detected")
+    out["corrupt_q03"] = {"frames_corrupted": fired, "detected": detected,
+                          "seconds": round(time.perf_counter() - t0, 3)}
+    return out
+
+
+def gov_disk(runner, queries, want, ordered) -> dict:
+    """A disk budget below Q18's spooled bytes, full of fragment memo: the
+    blocked commits are freed by reclaim (memo only, never a live spool);
+    then a spool-lost fault drives reproduction."""
+    from trino_tpu_torch.runtime.spool import SpooledExchange
+
+    coord = runner.coordinator
+    out = {}
+    t0 = time.perf_counter()
+    rows = runner.query(queries["q18"])
+    rows_agree(rows, want["q18"], "q18", "governance disk q18 vs tpch", ordered)
+    qi = last_query_info(runner)
+    by_worker = {}
+    for st in qi.get("stages") or []:
+        for t in st.get("tasks") or []:
+            url = t.get("worker") or ""
+            by_worker[url] = by_worker.get(url, 0) + int(t.get("output_bytes") or 0)
+    by_worker.pop("coordinator", None)
+    spooled = sum(by_worker.values())
+    # each worker's budget is below what Q18 spools in all (one worker never
+    # holds all of it), and starts full of fragment memo: no commit of Q18
+    # fits unless a reclaim frees memo first
+    budget = spooled - 1
+    memo = []
+    for i, w in enumerate(runner.workers):
+        pool = w.disk_pool
+        pool.set_capacity(budget)
+        pool.reserve("gov_probe", 0).release()  # harvests the leases of deleted dirs
+        name = f"memo_gov_w{i}_p0"
+        SpooledExchange(runner.spool, disk_pool=pool).commit_task(
+            name, {0: [bytes(budget - pool.reserved)]})
+        memo.append(name)
+    reclaims0 = [w.disk_pool.reclaims for w in runner.workers]
+    sheds0 = [w.disk_pool.sheds for w in runner.workers]
+    rows = runner.query(queries["q18"])
+    rec = coord.queries[list(coord.queries)[-1]]
+    rows_agree(rows, want["q18"], "q18", "governance disk q18 over a full budget vs tpch",
+               ordered)
+    reclaimed = [w.disk_pool.reclaims - r for w, r in zip(runner.workers, reclaims0)]
+    shed = [w.disk_pool.sheds - n for w, n in zip(runner.workers, sheds0)]
+    left = [n for n in memo if os.path.exists(os.path.join(runner.spool, n))]
+    if not any(reclaimed) or len(left) == len(memo):
+        fail(f"governance disk: no reclaim freed a blocked commit ({reclaimed}, memo left {left})")
+    if any(shed) or rec.get("spool_reproductions", 0) or rec.get("task_retries", 0):
+        fail(f"governance disk: sheds {shed}, reproductions "
+             f"{rec.get('spool_reproductions', 0)}, retries {rec.get('task_retries', 0)}")
+    out["reclaim_q18"] = {"budget_bytes": budget, "q18_spooled_bytes": spooled,
+                          "q18_spooled_bytes_by_worker": sorted(by_worker.values()),
+                          "memo_evicted": len(memo) - len(left), "reclaims": reclaimed,
+                          "sheds": 0, "seconds": round(time.perf_counter() - t0, 3)}
+    for w in runner.workers:
+        w.disk_pool.set_capacity(1 << 50)
+    # a committed partition lost before its consumer reads it
+    t0 = time.perf_counter()
+    for i in range(GOV_WORKERS):
+        runner.inject_task_failure(i, mode="SPOOL_LOST")
+    try:
+        rows = runner.query(queries["q03"])
+    finally:
+        for w in runner.workers:
+            w.fault_injector.clear()
+    rows_agree(rows, want["q03"], "q03", "governance spool lost q03 vs tpch", ordered)
+    heal_links(runner)
+    rec = coord.queries[list(coord.queries)[-1]]
+    repro = rec.get("spool_reproductions", 0)
+    if repro < 1:
+        fail("governance disk: a lost spool partition drove no reproduction")
+    out["spool_lost_q03"] = {"reproductions": repro,
+                             "seconds": round(time.perf_counter() - t0, 3)}
+    return out
+
+
+def gov_resource_groups(runner, gate, queries, want, ordered) -> dict:
+    """A resource group of concurrency 1: the second query queues, then runs;
+    a queued cancel leaves nothing behind.  Then the cluster memory limit:
+    its killer takes the query that buffers most, which requeues out of
+    core and answers."""
+    from trino_tpu_torch.runtime.resourcegroups import ResourceGroupConfig, ResourceGroupManager
+
+    coord = runner.coordinator
+    out = {}
+    t0 = time.perf_counter()
+    saved = coord.resource_groups
+    coord.resource_groups = ResourceGroupManager(ResourceGroupConfig(max_concurrency=1,
+                                                                     max_queued=5))
+    ids = {}
+    gate.arm(gate.first)
+    try:
+        ids["first"] = coord.submit_query(queries["q06"])
+        gov_wait(lambda: gate.held, "resource groups: q06 never started")
+        ids["queued"] = coord.submit_query(queries["q01"])
+        ids["canceled"] = coord.submit_query(queries["q03"])
+        states = {k: coord.queries[v]["sm"].state for k, v in ids.items()}
+        if states["queued"] != "QUEUED" or states["canceled"] != "QUEUED":
+            fail(f"resource groups: no query queued behind the running one: {states}")
+        if not coord.cancel_query(ids["canceled"]):
+            fail("resource groups: the queued query could not be canceled")
+    finally:
+        gate.release()
+    recs = {k: coord.queries[v] for k, v in ids.items()}
+    gov_wait(lambda: all(r["sm"].done for r in recs.values()),
+             "resource groups: the queries never finished", 120)
+    rows_agree(recs["first"]["result"], want["q06"], "q06", "governance rg q06 vs tpch", ordered)
+    if recs["queued"]["sm"].state != "FINISHED":
+        fail(f"resource groups: the queued q01 {recs['queued']['sm'].state}")
+    rows_agree(recs["queued"]["result"], want["q01"], "q01", "governance rg q01 vs tpch", ordered)
+    stats = coord.resource_groups.stats()["global"]
+    ran = [t for t in gate.started if t.startswith(ids["canceled"])]
+    leftovers = [n for n in os.listdir(runner.spool) if n.startswith(ids["canceled"])]
+    if recs["canceled"]["sm"].state != "FAILED" or ran or leftovers \
+            or stats.get("running") or stats.get("queued"):
+        fail(f"resource groups: the canceled query left {ran} tasks, {leftovers} spool dirs,"
+             f" {recs['canceled']['sm'].state}, group {stats}")
+    coord.resource_groups = saved
+    out["concurrency_1"] = {"queued_then_ran": "q01", "canceled_queued": "q03",
+                            "group": stats, "seconds": round(time.perf_counter() - t0, 3)}
+    # the cluster memory limit: with no spool the finished stages' output
+    # waits in the workers' buffers (un-acked under task retry) while the
+    # script holds every consumer task; the heartbeat sweep kills the query
+    # holding most, whose stage wait sees the kill and requeues it
+    t0 = time.perf_counter()
+    coord.session.set("exchange_spool_dir", "")
+    kills0, requeues0 = coord.memory_kills, coord.memory_requeues
+    ids = {}
+    gate.arm(lambda t: not (gate.info.get(t) or {}).get("leaf", True))
+    try:
+        ids["q18"] = coord.submit_query(queries["q18"])
+        ids["q03"] = coord.submit_query(queries["q03"])
+        gov_wait(lambda: {t.rsplit("_a", 1)[0] for t in gate.held} >= set(ids.values()),
+                 "cluster memory: the consumer stages never started")
+
+        def buffered():
+            got = {}
+            for w in runner.workers:
+                for q, b in w.buffered_by_query().items():
+                    got[q] = got.get(q, 0) + b
+            return got
+
+        gov_wait(lambda: all(buffered().get(q, 0) for q in ids.values()),
+                 "cluster memory: nothing buffered")
+        held_bytes = buffered()
+        coord.cluster_memory_limit_bytes = sum(held_bytes.get(q, 0) for q in ids.values()) - 1
+        gov_wait(lambda: coord.memory_kills > kills0, "cluster memory: no kill", 30)
+    finally:
+        coord.cluster_memory_limit_bytes = 0
+        gate.release()
+    recs = {k: coord.queries[v] for k, v in ids.items()}
+    gov_wait(lambda: all(r["sm"].done for r in recs.values()),
+             "cluster memory: the queries never finished", 300)
+    coord.session.set("exchange_spool_dir", runner.spool)
+    killed = [k for k, r in recs.items() if "cluster memory limit" in (r.get("kill_reason") or "")]
+    biggest = max(ids, key=lambda k: held_bytes.get(ids[k], 0))
+    for k, r in recs.items():
+        if r["sm"].state != "FINISHED":
+            fail(f"cluster memory: {k} {r['sm'].state}: {r['sm'].error}")
+        rows_agree(r["result"], want[k], k, f"governance cluster memory {k} vs tpch", ordered)
+    if killed != [biggest] or coord.memory_kills != kills0 + 1 \
+            or coord.memory_requeues != requeues0 + 1:
+        fail(f"cluster memory: killed {killed}, the biggest {biggest} ({held_bytes}), "
+             f"{coord.memory_requeues - requeues0} requeues")
+    out["cluster_memory"] = {"killed": biggest, "buffered_bytes": {k: held_bytes.get(v, 0)
+                                                                    for k, v in ids.items()},
+                             "requeued_out_of_core": 1,
+                             "seconds": round(time.perf_counter() - t0, 3)}
+    return out
+
+
+def gov_recovery(runner, gate, queries, want, ordered) -> dict:
+    """The coordinator killed mid-Q18 after a stage committed to the spool:
+    the restart replays the journal; RESUME re-reads committed stages and
+    runs no task of them again, RESTART recomputes them.  A CTAS into the
+    memory catalog crashed at the intent (a clean abort) and after its
+    commit (a no-op replay)."""
+    from trino_tpu_torch.runtime.journal import QueryJournal
+    from trino_tpu_torch.runtime.txn import TXN_TOTAL
+
+    out = {}
+    last = want["_q18_last_stage"]
+    for policy in ("RESUME", "RESTART"):
+        t0 = time.perf_counter()
+        coord = runner.coordinator
+        # the last stage's tasks wait: every other stage commits first
+        gate.arm(lambda t: task_fragment(t) == last)
+        try:
+            qid = coord.submit_query(queries["q18"])
+            gov_wait(lambda: gate.held and committed_fragments(runner.spool, qid),
+                     f"recovery {policy}: no stage committed before the held one")
+            committed = committed_fragments(runner.spool, qid)
+            port = runner.kill_coordinator()
+            mark = len(gate.started)
+            wait_port_free(port)
+            coord2 = runner.restart_coordinator(
+                port=port, session=dict(runner.session_props, resume_policy=policy))
+        finally:
+            gate.release()
+        gov_wait(lambda: qid in coord2.queries, f"recovery {policy}: nothing resumed", 30)
+        record = coord2.queries[qid]
+        gov_wait(lambda: record["sm"].done, f"recovery {policy}: q18 never finished", 300)
+        if record["sm"].state != "FINISHED":
+            fail(f"recovery {policy}: q18 {record['sm'].state}: {record['sm'].error}")
+        rows_agree(record["result"], want["q18"], "q18", f"governance recovery {policy} vs tpch",
+                   ordered)
+        rerun = sorted({task_fragment(t) for t in gate.started_since(mark)
+                        if t.startswith(qid) and task_fragment(t) in committed})
+        if policy == "RESUME" and (rerun or record.get("stages_resumed", 0) < 1):
+            fail(f"recovery RESUME: committed stages {sorted(committed)} ran again: {rerun}"
+                 f" (stages resumed {record.get('stages_resumed', 0)})")
+        if policy == "RESTART" and not rerun:
+            fail(f"recovery RESTART: committed stages {sorted(committed)} were not recomputed")
+        out[f"q18_{policy.lower()}"] = {
+            "committed_before_kill": sorted(committed), "rerun_after_restart": rerun,
+            "stages_resumed": record.get("stages_resumed", 0),
+            "seconds": round(time.perf_counter() - t0, 3)}
+    # writes: a CTAS crashed at its intent aborts clean, after its commit
+    # replays as a no-op
+    conn = runner.catalogs.get("memory")
+    li = want["_lineitem_big"]
+    for phase, table in (("intent", "gov_ctas_intent"), ("ack", "gov_ctas_ack")):
+        t0 = time.perf_counter()
+        coord = runner.coordinator
+        counter = "aborted" if phase == "intent" else "replayed_noop"
+        n0 = TXN_TOTAL.value(counter)
+        runner.inject_write_failure(phase=phase)
+        sql = GOV_CTAS.format(t=table)
+        errors: list = []
+        threading.Thread(target=_quiet, args=(errors, coord.execute_query, sql),
+                         daemon=True).start()
+        gov_wait(lambda: coord._killed,
+                 f"recovery CTAS {phase}: the crash never fired (the statement: {errors})")
+        port = coord.port
+        wait_port_free(port)
+        coord2 = runner.restart_coordinator(port=port, session=runner.session_props)
+        gov_wait(lambda: TXN_TOTAL.value(counter) == n0 + 1,
+                 f"recovery CTAS {phase}: the replay never settled the write", 60)
+        gov_wait(lambda: all(r["done"].is_set() for r in coord2.queries.values()),
+                 f"recovery CTAS {phase}: a replayed query never finished", 60)
+        exists = table in conn.list_tables()
+        if phase == "intent":
+            if exists or conn.orphaned_staging():
+                fail(f"recovery CTAS intent: table {exists}, staging {conn.orphaned_staging()}")
+        else:
+            got = coord2.execute_query(f"select count(*), sum(l_quantity) from memory.{table}")
+            if [list(r) for r in got] != [li]:
+                fail(f"recovery CTAS ack: {got} != numpy {li} (applied twice or lost)")
+        jq = QueryJournal.replay(runner.journal_path)
+        out[f"ctas_{phase}"] = {"outcome": counter, "table_exists": exists,
+                                "journaled_queries": len(jq),
+                                "seconds": round(time.perf_counter() - t0, 3)}
+    return out
+
+
+def _quiet(errors: list, fn, *args) -> None:
+    try:
+        fn(*args)
+    except Exception as e:  # a coordinator that crashes mid-statement answers nothing
+        errors.append(repr(e)[:400])
+
+
+def learned_tiers(runner) -> list:
+    """The capacity tiers the workers learned: each plan's caps, sorted."""
+    return sorted({tuple(sorted(caps.items())) for w in runner.workers
+                   for _, caps, _ in w.scan_cache.learned_caps.values()})
+
+
+def gov_splits(scale, dev, gate, queries, want, ordered) -> tuple:
+    """Q1, Q6 and TOPN under split-driven scans at SF `scale` and at
+    GOV_SPLIT_SMALL: the morsel count grows with scale, the executed
+    signatures, kernel 2's recipes and the capacity tiers do not.  Then a
+    worker killed mid-scan: zero client failures, 1 <= retries < splits, and
+    no committed morsel read again.  Returns (lines, the runner's counts)."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops.cuda import fused, fused_codegen
+    from trino_tpu_torch.utils.profiler import PROFILER
+
+    cpu = tpch_engine("cpu", GOV_SPLIT_SMALL)
+    small_want = {n: cpu.query(TOPN if n == "topn" else queries[n]) for n in GOV_SPLIT_QUERIES}
+    del cpu
+    per_scale = {}
+    for sf, rows_want in ((GOV_SPLIT_SMALL, small_want), (scale, want)):
+        t0 = time.perf_counter()
+        runner = gov_runner(sf, dev)
+        gate.attach(runner.workers)
+        runner.coordinator.session.set("split_driven_scans", "true")
+        runner.coordinator.session.set("split_target_rows", str(GOV_SPLIT_ROWS))
+        recipes = set()
+        plain_run = fused.run
+
+        def counted(recipe, scan_cols, live):
+            recipes.add(fused_codegen.recipe_key(recipe))
+            return plain_run(recipe, scan_cols, live)
+
+        fused.run = counted
+        try:
+            built0 = len(fused_codegen._KERNELS)
+            before = PROFILER.snapshot()
+            splits = {}
+            for name in GOV_SPLIT_QUERIES:
+                rows = runner.query(TOPN if name == "topn" else queries[name])
+                rows_agree(rows, rows_want[name], name, f"governance splits {name} at SF {sf}",
+                           ordered)
+                splits[name] = (last_query_info(runner).get("splits") or {}).get("splits", 0)
+            after = PROFILER.snapshot()
+        finally:
+            fused.run = plain_run
+        used = sorted(sig for sig, e in after.items()
+                      if e.get("executes", 0) + e.get("fallback_executes", 0)
+                      > (before.get(sig) or {}).get("executes", 0)
+                      + (before.get(sig) or {}).get("fallback_executes", 0))
+        per_scale[sf] = {"splits": splits, "signatures": used, "recipes": sorted(recipes),
+                         "recipes_built": len(fused_codegen._KERNELS) - built0,
+                         "tiers": learned_tiers(runner),
+                         "seconds": round(time.perf_counter() - t0, 3)}
+        if sf == scale:
+            big = runner
+        else:
+            gate.detach(runner.workers)
+            stop_runner(runner, dev)
+    lo, hi = per_scale[GOV_SPLIT_SMALL], per_scale[scale]
+    if not all(hi["splits"][n] > lo["splits"][n] >= 1 for n in GOV_SPLIT_QUERIES):
+        fail(f"governance splits: the morsel count did not grow with scale: {lo['splits']} "
+             f"-> {hi['splits']}")
+    if not lo["signatures"] or len(lo["signatures"]) != len(hi["signatures"]):
+        fail(f"governance splits: executed signatures {lo['signatures']} -> {hi['signatures']}")
+    if not lo["recipes"] or lo["recipes"] != hi["recipes"] or hi["recipes_built"]:
+        fail(f"governance splits: kernel 2 recipes {lo['recipes']} -> {hi['recipes']}, "
+             f"{hi['recipes_built']} built at SF {scale}")
+    if not lo["tiers"] or len(lo["tiers"]) != len(hi["tiers"]):
+        fail(f"governance splits: capacity tiers {lo['tiers']} -> {hi['tiers']}")
+    lines = {"scales": {str(k): {**v, "signatures": len(v["signatures"]),
+                                 "recipes": len(v["recipes"]), "tiers": len(v["tiers"])}
+                        for k, v in per_scale.items()}}
+    # the kill drill, on the SF `scale` runner: four morsels commit, the next
+    # three (one per worker) are held at the fault hook, worker 1 dies
+    t0 = time.perf_counter()
+    runner = big
+    try:
+        conn = runner.catalogs.get("tpch")
+        reads, rlock = {}, threading.Lock()
+        plain_read = type(conn).read_split
+
+        def read_split(split, columns):
+            if split.table == "lineitem":
+                with rlock:
+                    reads[split.part] = reads.get(split.part, 0) + 1
+            return plain_read(conn, split, columns)
+
+        conn.read_split = read_split
+        runner.coordinator.session.set("split_queue_depth", "1")
+        gate.arm(lambda t: (gate.info.get(t) or {}).get("leaf", False), free=4)
+        try:
+            qid = runner.coordinator.submit_query(GOV_KILL_SQL)
+            gov_wait(lambda: len(gate.held) >= GOV_WORKERS
+                     and len(committed_tasks(runner.spool, qid)) >= 4,
+                     "splits kill: the scan never reached mid-flight")
+            before_kill = {task_part(t) for t in committed_tasks(runner.spool, qid)}
+            runner.kill_worker(1)
+        finally:
+            gate.release()
+        record = runner.coordinator.queries[qid]
+        gov_wait(lambda: record["sm"].done, "splits kill: the query never finished", 300)
+        del conn.read_split
+        if record["sm"].state != "FINISHED":
+            fail(f"splits kill: {record['sm'].state}: {record['sm'].error}")
+        rows_match([tuple(r) for r in record["result"]], [tuple(want["_kill"])],
+                   "governance splits kill vs numpy")
+        info = (record.get("query_info") or {}).get("splits") or {}
+        n, retries, steals = info.get("splits", 0), info.get("retries", 0), info.get("steals", 0)
+        reread = sorted(p for p in before_kill if reads.get(p, 0) > 1)
+        if not (1 <= retries < n) or info.get("completed") != n or reread \
+                or not n <= sum(reads.values()) <= n + retries + steals:
+            fail(f"splits kill: {info}, reads {reads}, committed morsels read again {reread}")
+        lines["kill_mid_scan"] = {"splits": n, "retries": retries, "steals": steals,
+                                  "reads": sum(reads.values()),
+                                  "committed_before_kill": len(before_kill),
+                                  "client_failures": 0,
+                                  "seconds": round(time.perf_counter() - t0, 3)}
+    finally:
+        gate.detach(runner.workers)
+        stop_runner(runner, dev)
+    return lines
+
+
+def gov_fleet(scale, dev, gate, queries, want, ordered) -> dict:
+    """Two coordinators behind FleetRouter over three workers: Q6 and Q3
+    through the router, then the coordinator owning a Q18 killed mid-query;
+    the survivor adopts it from the dead member's journal and recomputes no
+    committed stage."""
+    from trino_tpu_torch.client import StatementClient
+
+    t0 = time.perf_counter()
+    runner = gov_runner(scale, dev, num_coordinators=2, fleet_ttl_s=1.5,
+                        heartbeat_interval=0.3)
+    gate.attach(runner.workers)
+    out = {}
+    try:
+        for c in runner.coordinators:
+            c.session.set("resume_policy", "RESUME")
+        for name in ("q06", "q03"):
+            got = protocol_rows(runner.query_via_protocol(queries[name]), want[name])
+            rows_agree(got, want[name], name, f"governance fleet {name} through the router",
+                       ordered)
+        routed = {f"c{i}": len(c.queries) for i, c in enumerate(runner.coordinators)}
+        res = {}
+        client = StatementClient(runner.client_url, reattach_max_elapsed_s=90.0)
+
+        def go():
+            try:
+                res["rows"] = client.execute(queries["q18"], timeout=300)[1]
+            except Exception as e:
+                res["err"] = e
+
+        # Q3 and Q6 are done: only Q18's last stage is held
+        gate.arm(lambda t: task_fragment(t) == want["_q18_last_stage"])
+        th = threading.Thread(target=go, daemon=True)
+        try:
+            th.start()
+            gov_wait(lambda: gate.held, "fleet: q18 never reached its last stage")
+            owner = next(i for i, c in enumerate(runner.coordinators)
+                         if any(not r["done"].is_set() for r in c.queries.values()))
+            q18 = next(q for q, r in runner.coordinators[owner].queries.items()
+                       if not r["done"].is_set())
+            gov_wait(lambda: committed_fragments(runner.spool, q18),
+                     "fleet: no stage committed before the kill")
+            committed = committed_fragments(runner.spool, q18)
+            runner.kill_coordinator(owner)
+            mark = len(gate.started)
+        finally:
+            gate.release()
+        th.join(timeout=300)
+        if th.is_alive() or "err" in res:
+            fail(f"fleet: the client saw {res.get('err')!r} (alive {th.is_alive()})")
+        rows_agree(protocol_rows(res["rows"], want["q18"]), want["q18"], "q18",
+                   "governance fleet q18 across the kill", ordered)
+        survivor = runner.coordinators[1 - owner]
+        adopted = [r for r in survivor.queries.values() if r.get("adopted_from")]
+        rerun = sorted({task_fragment(t) for t in gate.started_since(mark)
+                        if task_fragment(t) in committed and q18 in t})
+        if not adopted or rerun:
+            fail(f"fleet: adopted {len(adopted)}, committed stages {sorted(committed)} ran "
+                 f"again: {rerun}")
+        out = {"routed": routed, "owner": f"c{owner}", "adopted_by": f"c{1 - owner}",
+               "committed_before_kill": sorted(committed), "recomputed": rerun,
+               "stages_resumed": adopted[0].get("stages_resumed", 0),
+               "seconds": round(time.perf_counter() - t0, 3)}
+    finally:
+        gate.detach(runner.workers)
+        stop_runner(runner, dev)
+    return out
+
+
+def governance_phase(engine, scale, tpch_rows, device=None):
+    """The control plane of the cluster on the card at TPC-H `scale`, three
+    workers on one card (memory and disk escalation, split-driven scans,
+    resource groups, journal replay, the write path's coordinator crashes,
+    the fleet router), every result against the tpch phase's rows (TOPN:
+    the TPC-H engine's).  Returns (the path's launch counts, phase
+    seconds)."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.connectors.tpch import tpch_data
+    from trino_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device) if device is not None else torch.device("cuda", 0)
+    queries, ordered = tpch_queries()
+    ordered = dict(ordered, topn=True)
+    li = tpch_data("lineitem", scale)
+    qty = np.asarray(li["l_quantity"], np.int64)  # decimal(12,2), unscaled
+    big = qty[qty > 4500]
+    want = dict(tpch_rows, topn=engine.query(TOPN),
+                _kill=(len(qty), exact_sum(np.asarray(li["l_partkey"], np.int64))),
+                _lineitem_big=[len(big), Decimal(exact_sum(big)) / 100])
+    engine.executor.drop_scans()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    kernels.set_policy(kernels.KernelPolicy())
+    gate = TaskGate()
+    gate.install()
+    journal_dir = tempfile.mkdtemp(prefix="chip_smoke_gov_journal_")
+    journal = os.path.join(journal_dir, "journal.jsonl")
+    reset_kernel_counts()  # every count to 0 just before the path, read just after
+    try:
+        runner = gov_runner(scale, dev, heartbeat_interval=0.1, node_memory_bytes=1 << 50,
+                            disk_budget_bytes=1 << 50, journal_path=journal)
+        gate.attach(runner.workers)
+        try:
+            steps = (
+                ("memory", lambda: gov_memory(runner, gate, queries, want, ordered, dev)),
+                ("disk", lambda: gov_disk(runner, queries, want, ordered)),
+                ("resource_groups",
+                 lambda: gov_resource_groups(runner, gate, queries, want, ordered)),
+                ("recovery", lambda: gov_recovery(runner, gate, queries, want, ordered)),
+            )
+            for step, fn in steps:
+                t0 = time.perf_counter()
+                if step == "recovery":  # Q18's last worker stage, from its last run
+                    coord = runner.coordinator
+                    qid = [q for q, r in coord.queries.items()
+                           if r.get("sql") == queries["q18"] and r.get("stage_times")][-1]
+                    want["_q18_last_stage"] = last_worker_stage(coord, qid)
+                emit({"phase": "governance", "step": step, "correct": True, **fn(),
+                      "seconds": round(time.perf_counter() - t0, 3)})
+        finally:
+            gate.detach(runner.workers)
+            stop_runner(runner, dev)
+        t0 = time.perf_counter()
+        emit({"phase": "governance", "step": "splits", "correct": True,
+              **gov_splits(scale, dev, gate, queries, want, ordered),
+              "seconds": round(time.perf_counter() - t0, 3)})
+        emit({"phase": "governance", "step": "fleet", "correct": True,
+              **gov_fleet(scale, dev, gate, queries, want, ordered)})
+        counts = kernel_counts()
+    finally:
+        gate.uninstall()
+        shutil.rmtree(journal_dir, ignore_errors=True)
+    for k in KERNEL_NAMES:
+        if counts[k] < 1:
+            fail(f"governance path never launched {k}: {counts}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "governance", "step": "summary", "scale": scale,
+          "seconds": round(seconds, 1), "launches": counts})
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -4860,13 +5849,15 @@ def main(argv=None) -> int:
     # read before `resilience`, whose compile-plane drills clear the cubin cache
     sass = sass_report()
     resilience_counts, resilience_s = resilience_phase(engine, args.scale, tpch_rows)
+    governance_counts, governance_s = governance_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
                    "nested": nested_counts[r["name"]], "spill": spill_counts[r["name"]],
                    "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]],
                    "distributed": dist_counts[r["name"]], "cluster": cluster_counts[r["name"]],
-                   "resilience": resilience_counts[r["name"]]}
+                   "resilience": resilience_counts[r["name"]],
+                   "governance": governance_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -4878,7 +5869,8 @@ def main(argv=None) -> int:
           "statements_seconds": round(statements_s, 1), "nested_seconds": round(nested_s, 1),
           "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
           "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1),
-          "cluster_seconds": round(cluster_s, 1), "resilience_seconds": round(resilience_s, 1)})
+          "cluster_seconds": round(cluster_s, 1), "resilience_seconds": round(resilience_s, 1),
+          "governance_seconds": round(governance_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -99,6 +99,17 @@ COMPILE_PLANE_MODULES = (
 )
 
 
+# cluster governance and recovery (node memory and disk pools, split
+# scheduling, resource groups, the journal, the spool, the fleet, write
+# transactions) and the modules around them: each must be walked too
+GOVERNANCE_MODULES = (
+    "trino_tpu_torch.runtime.memory", "trino_tpu_torch.runtime.disk",
+    "trino_tpu_torch.runtime.splits", "trino_tpu_torch.runtime.resourcegroups",
+    "trino_tpu_torch.runtime.journal", "trino_tpu_torch.runtime.spool",
+    "trino_tpu_torch.runtime.fleet", "trino_tpu_torch.runtime.txn",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -130,6 +141,66 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert set(CLUSTER_MODULES) <= walked, sorted(set(CLUSTER_MODULES) - walked)
     assert set(COMPILE_PLANE_MODULES) <= walked, sorted(
         set(COMPILE_PLANE_MODULES) - walked)
+    assert set(GOVERNANCE_MODULES) <= walked, sorted(set(GOVERNANCE_MODULES) - walked)
+
+
+@pytest.mark.parametrize("name", GOVERNANCE_MODULES)
+def test_governance_modules_are_host_only_and_pick_no_device(name):
+    """The governance modules count bytes, leases, splits and journal
+    records on the host: none imports torch, jax or the JAX package, and
+    none names a device (so none can pick the CPU where the caller asked
+    for nothing); the nodes that run them hold the device."""
+    path = os.path.join(_ROOT, *name.split(".")) + ".py"
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            roots = []
+        for root in roots:
+            assert root not in ("torch", "jax", "jaxlib", "trino_tpu"), (
+                f"{path}:{node.lineno} imports {root}")
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert node.value.lower() not in ("cpu", "cuda"), (
+                f"{path}:{node.lineno} names a device")
+        if isinstance(node, ast.arg):
+            assert node.arg not in ("device", "devices"), f"{path}: takes a device"
+
+
+def test_governed_nodes_raise_without_a_device(tmp_path):
+    """The nodes that act on the card under governance (node memory and
+    disk pools, a journal, a fleet) raise the typed error without one, and
+    run where the caller asks."""
+    try:  # arrow before torch (see test_torch_dec128)
+        import pyarrow  # noqa: F401
+    except ImportError:
+        pass
+    import torch
+
+    from trino_tpu_torch.connectors.spi import CatalogManager
+    from trino_tpu_torch.runtime.coordinator import Coordinator
+    from trino_tpu_torch.runtime.worker import Worker
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Worker(CatalogManager(), "tpch", node_memory_bytes=1 << 20, disk_budget_bytes=1 << 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Coordinator(CatalogManager(), journal_path=str(tmp_path / "j.jsonl"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedQueryRunner(num_workers=3, node_memory_bytes=1 << 20,
+                               disk_budget_bytes=1 << 20, num_coordinators=2,
+                               journal_path=str(tmp_path / "j.jsonl"))
+    w = Worker(CatalogManager(), "tpch", node_memory_bytes=1 << 20, device="cpu")
+    try:
+        assert w.device.type == "cpu" and w.memory_pool.capacity == 1 << 20
+        assert w.scan_cache.drop_device() == 0
+    finally:  # never started: close its listening socket
+        w.httpd.server_close()
+        w._pool.shutdown(wait=False)
 
 
 def test_no_refusal_names_the_nested_value_family():

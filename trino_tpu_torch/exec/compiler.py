@@ -143,15 +143,35 @@ class ScanCache:
     share: the tasks of one worker node (runtime/worker.py), which would
     otherwise re-read, re-encode and re-upload their table slices on every
     task.  Entries are keyed by table, columns, split, pad, dynamic filters
-    and write generation, so tasks over different slices never collide;
-    `lock` serializes the reads and uploads of concurrent tasks."""
+    and write generation, so tasks over different slices never collide.
+    `lock` guards the dicts only: a task reads and uploads a missing column
+    outside it, after marking the column's key in flight (`inflight`: key
+    -> Event), so a blocked connector read stalls only the tasks that need
+    that very column, and two tasks needing it read it once."""
 
     def __init__(self):
         self.cols: dict = {}
         self.pages: dict = {}
         self.live: dict = {}
         self.learned_caps: dict = {}
+        self.inflight: dict = {}
         self.lock = threading.RLock()
+
+    def drop_device(self) -> int:
+        """Let go of every cached column and page (the learned capacities,
+        host values, stay): what a node gives back under memory pressure.
+        Returns the device bytes the dropped columns held."""
+        with self.lock:
+            nbytes = sum(
+                t.numel() * t.element_size()
+                for col in self.cols.values()
+                for t in (col.data, col.valid, col.data2)
+                if isinstance(t, torch.Tensor)
+            )
+            self.cols.clear()
+            self.pages.clear()
+            self.live.clear()
+        return nbytes
 
 
 class LocalExecutor:
@@ -266,11 +286,12 @@ class LocalExecutor:
         Columns are cached per write generation of the table (writable
         connectors bump it on every write).  When a table uploads at a new
         generation, its columns of older generations leave the card.  An
-        empty table scans as one dead row."""
-        with self._scan_lock:
-            return self._table_page(catalog, table, columns, scan_id)
+        empty table scans as one dead row.
 
-    def _table_page(self, catalog, table, columns, scan_id) -> Page:
+        The scan cache's lock is held only to look up and publish entries:
+        a missing column is read and uploaded outside it by the one task
+        that marked it in flight, and any other task needing that column
+        waits for it."""
         conn = self.catalogs.get(catalog)
         schema = conn.table_schema(table)
         gen = _generation(conn, table)
@@ -279,36 +300,76 @@ class LocalExecutor:
         pad = int(self.split_pad_rows or 0)
         key_of = lambda c: (catalog, table, c, split, pad, filters, gen)
         live_key = (catalog, table, split, pad, filters, gen)
-        missing = [c for c in columns if key_of(c) not in self._table_cols]
-        if missing:
-            t0 = time.perf_counter()
-            self._drop_stale(catalog, table, gen)
-            data = self._read_slice(conn, table, missing, filters)
-            pad_to = 1  # kernels need a capacity of at least 1
-            num_parts = split[1]
-            if filters:
-                # a pruned slice's size varies run to run: a pow2 capacity
-                # keeps the shapes (and learned capacities) few
-                pad_to = _pow2(len(next(iter(data.values()))) if data else 0)
-            elif self.pad_splits and num_parts > 1:
-                pad_to = _slice_pad(conn, table, num_parts)
-            if pad:
-                # a split-driven morsel: one fixed capacity wins over both
-                # pads above (a filtered morsel only shrinks below it)
-                pad_to = max(pad_to, pad)
-            for c in missing:
-                arr = data[c]
-                n_live = len(arr)
-                if n_live < pad_to:
-                    arr = _pad_column(arr, schema.type_of(c), pad_to)
-                    self._table_live[live_key] = n_live
-                self._table_cols[key_of(c)] = Column.from_numpy(
-                    schema.type_of(c), arr, device=self.device
+        inflight = self.scan_cache.inflight
+        while True:
+            with self._scan_lock:
+                missing = [c for c in columns if key_of(c) not in self._table_cols]
+                if not missing:
+                    return self._cached_page(catalog, table, columns, key_of, live_key)
+                mine = [c for c in missing if key_of(c) not in inflight]
+                theirs = [inflight[key_of(c)] for c in missing if key_of(c) in inflight]
+                for c in mine:
+                    inflight[key_of(c)] = threading.Event()
+                if mine:
+                    self._drop_stale(catalog, table, gen)
+            if not mine:
+                # another task reads these columns: wait for its publish
+                # (or its failure, which clears the marker) and look again
+                theirs[0].wait()
+                continue
+            try:
+                self._upload_columns(
+                    conn, schema, table, mine, filters, pad, key_of, live_key
                 )
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.last_upload_ms += (time.perf_counter() - t0) * 1e3
-        page_key = (catalog, table, tuple(columns), split, pad, filters, gen)
+            finally:
+                with self._scan_lock:
+                    for c in mine:
+                        inflight.pop(key_of(c)).set()
+
+    def _upload_columns(
+        self, conn, schema, table, missing, filters, pad, key_of, live_key
+    ) -> None:
+        """Read `missing` columns of this executor's slice, pad and upload
+        them, then publish them in the scan cache (its lock not held while
+        the connector reads and the columns upload)."""
+        t0 = time.perf_counter()
+        split = self.split
+        data = self._read_slice(conn, table, missing, filters)
+        pad_to = 1  # kernels need a capacity of at least 1
+        num_parts = split[1]
+        if filters:
+            # a pruned slice's size varies run to run: a pow2 capacity
+            # keeps the shapes (and learned capacities) few
+            pad_to = _pow2(len(next(iter(data.values()))) if data else 0)
+        elif self.pad_splits and num_parts > 1:
+            pad_to = _slice_pad(conn, table, num_parts)
+        if pad:
+            # a split-driven morsel: one fixed capacity wins over both
+            # pads above (a filtered morsel only shrinks below it)
+            pad_to = max(pad_to, pad)
+        uploaded = {}
+        n_short = None
+        for c in missing:
+            arr = data[c]
+            n_live = len(arr)
+            if n_live < pad_to:
+                arr = _pad_column(arr, schema.type_of(c), pad_to)
+                n_short = n_live
+            uploaded[key_of(c)] = Column.from_numpy(
+                schema.type_of(c), arr, device=self.device
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        with self._scan_lock:
+            if n_short is not None:
+                self._table_live[live_key] = n_short
+            self._table_cols.update(uploaded)
+        self.last_upload_ms += (time.perf_counter() - t0) * 1e3
+
+    def _cached_page(self, catalog, table, columns, key_of, live_key) -> Page:
+        """The page of `columns`, every one cached (the caller holds the
+        scan lock)."""
+        page_key = (catalog, table, tuple(columns)) + live_key[2:]
         cached = self._table_pages.get(page_key)
         if cached is not None:
             return cached
@@ -369,10 +430,7 @@ class LocalExecutor:
         """Let go of every cached scan column and page (the out-of-core
         executor calls this between slices, so one slice's working set is
         all that stays on the card)."""
-        with self._scan_lock:
-            self._table_cols.clear()
-            self._table_pages.clear()
-            self._table_live.clear()
+        self.scan_cache.drop_device()
 
     def drop_table_cache(self, catalog: str, table: str) -> None:
         """Forget every cached generation of `catalog.table` (after a write

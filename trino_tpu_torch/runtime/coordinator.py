@@ -53,7 +53,7 @@ from ..utils import timeseries as _ts
 from ..utils.tracing import Tracer, add_exporters_from_env, traceparent
 from .events import EventListenerManager, QueryEvent
 from .failure import (
-    Backoff, FailureDetector, FaultInjector, InjectedCommitCrash,
+    QUARANTINED, Backoff, FailureDetector, FaultInjector, InjectedCommitCrash,
 )
 # imported unconditionally: fleet.py registers the fleet metric families in
 # the GLOBAL registry at import, so /metrics carries their HELP strings even
@@ -1011,10 +1011,17 @@ class Coordinator:
                 continue  # old worker build or unreachable: skip
             for t in listing.get("tasks") or []:
                 qid = t.get("query_id")
-                if not qid or qid in live:
+                if not qid or qid in live or self._query_live(qid):
+                    # the second look: a query admitted after the live set
+                    # was taken may have posted tasks before the listing
                     continue
                 self._delete_task_quiet(w.url, t["task_id"])
                 self._m_orphans.inc()
+
+    def _query_live(self, qid: str) -> bool:
+        with self._lock:
+            rec = self.queries.get(qid)
+            return rec is not None and not rec["sm"].done
 
     def _gc_spool(self) -> None:
         """Periodic spool GC: drop committed/staging dirs of queries that
@@ -2854,7 +2861,13 @@ class Coordinator:
                 def fetch_one(u: str, t: str) -> list[bytes]:
                     if u == SPOOL_URL:
                         return spool.read_chunks(t, 0)
-                    return _stream_fetch(u, t, 0, node=self.url)
+                    # a producer the heartbeats quarantined is dead: stop
+                    # retrying it and heal (the spool or a re-run), rather
+                    # than retrying until the fetch backoff's deadline
+                    return _stream_fetch(
+                        u, t, 0, node=self.url,
+                        abort=lambda: self.failure_detector.state(u) == QUARANTINED,
+                    )
 
                 for i in range(len(task_urls[child_id])):
                     u, t = task_urls[child_id][i]

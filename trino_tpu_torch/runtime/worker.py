@@ -67,6 +67,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import quote, unquote
 
+import torch
+
 from ..connectors.spi import CatalogManager
 from ..data.page import Page
 from .. import resolve_device
@@ -213,6 +215,8 @@ class Worker:
         # scan columns and learned capacities every task of this node
         # shares (keyed by split, pad, filters and write generation)
         self.scan_cache = ScanCache()
+        # device bytes of cached columns given back on revocations
+        self.revoked_device_bytes = 0
         self._killed = False  # kill(): handlers answer nothing more
         self.tasks: dict[str, _Task] = {}
         self.fault_injector = FaultInjector()
@@ -1346,7 +1350,14 @@ class Worker:
     def revoke_query_memory(self, query_id: str) -> int:
         """Execute a coordinator revocation request: force-spill every
         revocable lease of `query_id` on this node (POST /v1/memory/revoke).
-        Returns bytes freed; 0 when nothing was revocable."""
+        Returns bytes freed; 0 when nothing was revocable.
+
+        The pool counts nominal bytes; the card holds real ones.  So a
+        revocation also gives back the device memory this node caches: the
+        scan cache's uploaded columns and pages leave the card (running
+        tasks keep the pages they hold; the revoked tasks run sliced on a
+        cache of their own), and the caching allocator returns its free
+        blocks."""
         if self.memory_pool is None:
             return 0
         freed = self.memory_pool.revoke_query(
@@ -1354,6 +1365,9 @@ class Worker:
         )
         if freed > 0:
             self._m_revocations.inc()
+            self.revoked_device_bytes += self.scan_cache.drop_device()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
         return freed
 
     def _is_local_spill(self, path: str) -> bool:
@@ -1495,7 +1509,7 @@ def _stream_fetch(
         if abort is not None and abort():
             raise RuntimeError(
                 f"fetch {task_id}/{buffer_id}/{token} from {worker_url}: "
-                f"canceled (hedge path won)"
+                f"canceled (hedge path won, or the producer is dead)"
             )
         wait_s = 30.0
         headers = {}
