@@ -69,7 +69,7 @@ encode, upload and execute), Q1 / Q6 over ORC, a join across the three
 formats, Q1 and Q18 out of core over uneven row groups, Iceberg writes with
 time travel, rollback and an EXECUTE across a commit, and GROUP BYs over an
 8,388,608-row Faker table, each against its reference; then the same at SF
-0.01, card vs CPU.  The `distributed` phase runs the 22 queries and the TopN
+0.005, card vs CPU.  The `distributed` phase runs the 22 queries and the TopN
 through `Engine(distributed=True, devices=["cuda:0"] * 4)` — every fragment
 of the distributed plan as four tasks on the card, the exchanges in device
 memory — each against the `tpch` phase's rows (Q3 and Q18 also with
@@ -121,7 +121,19 @@ TOPN under split-driven scans at SF 1 and 0.1 (more morsels, the same
 count of executed signatures, kernel-2 recipes and capacity tiers), a
 worker killed mid-scan (one morsel retried, no committed morsel read
 again); and two coordinators behind FleetRouter, one killed mid-Q18, the
-other adopting it with no stage recomputed.
+other adopting it with no stage recomputed.  The `caches` phase runs a third
+such cluster with the coordinator's result cache ON: Q1, Q3, Q6, Q18 and TOPN
+executed warm and then served (a hit schedules no task, launches no kernel
+and allocates nothing on the card), Q6 in another text hitting Q6's entry,
+admission after the default number of recurrences, a cached aggregate over
+the 600,108-row CTAS through DELETE, UPDATE, INSERT and MERGE (each next read
+executes and equals numpy), an external Iceberg commit and a time-travel
+read, the fragment memo seeding both leaves of a join (no scan) and missing
+after a write, two Q18 in flight executing once, a coordinator restart
+coming up cold, and PREPARE / EXECUTE (20 bindings against `Engine.query`) /
+DEALLOCATE, a header-only client, DB-API binding and the EXPLAIN ANALYZE
+EXECUTE footer through the protocol; then the result-cache test file's
+statements at SF 0.01, card cluster against CPU cluster.
 Each phase prints JSON lines; the last line of standard output is `{"ok":
 true, "device": {...}}`.  Any failed build, launch or comparison ends the run with a
 non-zero exit code.  Without a CUDA device it prints a message on stderr and
@@ -3161,7 +3173,7 @@ def fastpath_cross_check(rng) -> int:
 
 LAKE_ROW_GROUP = 262_144  # lineitem and orders: lineitem's 8 slices are uneven
 LAKE_FAKER_ROWS = 8_388_608  # at scale 1
-LAKE_CROSS_SCALE = 0.01
+LAKE_CROSS_SCALE = 0.005  # cut from 0.01 so that the script keeps within its time
 # the Faker table of the SF 0.01 cross-check: the CPU engine's plain hash
 # build walks a round per collision chain, and its GROUP BY user_id over a
 # hundredth of the full table (~53 K groups) costs tens of seconds
@@ -3652,7 +3664,7 @@ def lake_check(rows: dict, scale: float, tpch_rows, eng, tpch_engine, what: str)
 
 
 def lake_cross_check(tmp: str) -> int:
-    """The lake path at SF 0.01 on a card engine and on Engine(device="cpu"),
+    """The lake path at LAKE_CROSS_SCALE on a card engine and on Engine(device="cpu"),
     every statement's rows compared, every result held as at full size; the
     CPU engine's run makes no CUDA allocation."""
     import os
@@ -3666,15 +3678,15 @@ def lake_cross_check(tmp: str) -> int:
     before = cuda_allocations()
     exp = run_lake(host, measure=False)["rows"]
     if cuda_allocations() != before:
-        fail("lake SF 0.01: the CPU engine's run allocated on the card")
+        fail(f"lake SF {LAKE_CROSS_SCALE}: the CPU engine's run allocated on the card")
     queries, ordered = tpch_queries()
     for name in got:
         if name == "writes":
             continue
-        rows_agree(got[name], exp[name], name, f"lake SF 0.01 {name}: cuda vs cpu engine",
+        rows_agree(got[name], exp[name], name, f"lake SF {LAKE_CROSS_SCALE} {name}: cuda vs cpu engine",
                    ordered)
     ref = tpch_engine("cuda", LAKE_CROSS_SCALE)
-    lake_check(got, LAKE_CROSS_SCALE, None, card, ref, "lake SF 0.01")
+    lake_check(got, LAKE_CROSS_SCALE, None, card, ref, f"lake SF {LAKE_CROSS_SCALE}")
     return len(got) - 1
 
 
@@ -3684,8 +3696,9 @@ def lake_phase(engine, scale, tpch_rows):
     at the end), the 22 queries from Parquet against the tpch phase's rows,
     ORC, a join across three catalogs, out of core over uneven row groups,
     Iceberg writes, time travel and EXECUTE across a commit, Faker GROUP BYs;
-    the kernels' calls against their plain versions; then the same at SF
-    0.01, card vs CPU.  Returns (the path's launch counts, phase seconds)."""
+    the kernels' calls against their plain versions; then the same at
+    LAKE_CROSS_SCALE, card vs CPU.  Returns (the path's launch counts, phase
+    seconds)."""
     import shutil
     import tempfile
 
@@ -4904,7 +4917,7 @@ def wait_port_free(port: int, timeout: float = 15.0) -> None:
             time.sleep(0.05)
         finally:
             s.close()
-    fail(f"governance: port {port} never freed")
+    fail(f"port {port} never freed for a restarted coordinator")
 
 
 def device_memory(dev, reset: bool = False) -> dict:
@@ -4949,7 +4962,7 @@ def task_part(task_id: str) -> int:
     return int(task_id.rsplit("_p", 1)[1].split("_", 1)[0])
 
 
-def protocol_rows(got, want) -> list:
+def protocol_rows(got, want, what: str = "governance") -> list:
     """Rows read through the client protocol (decimals and dates as text)
     typed like `want`'s, column by column."""
     import datetime
@@ -4968,7 +4981,7 @@ def protocol_rows(got, want) -> list:
         return g
 
     if len(got) != len(want):
-        fail(f"governance: {len(got)} rows through the protocol, {len(want)} wanted")
+        fail(f"{what}: {len(got)} rows through the protocol, {len(want)} wanted")
     return [tuple(typed(g, w) for g, w in zip(gr, wr)) for gr, wr in zip(got, want)]
 
 
@@ -5718,6 +5731,613 @@ def governance_phase(engine, scale, tpch_rows, device=None):
     return counts, seconds
 
 
+# ----------------------------------- the result cache and the fragment memo
+
+CACHE_QUERIES = ("q01", "q03", "q06", "q18")  # and TOPN: each executed warm, then a hit
+# Q6 in another text: the cache key is the optimized plan's signature
+CACHE_Q6_ALIKE = (
+    "SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
+    "WHERE l_shipdate >= DATE '1994-01-01' AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR "
+    "AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01 AND l_quantity < 24"
+)
+CACHE_ADMIT = "select count(*), sum(l_discount) from lineitem where l_quantity < 7"  # run nowhere else
+CACHE_AGG = ("select l_quantity, count(*), sum(l_orderkey), min(l_orderkey), max(l_orderkey) "
+             "from memory.big_qty group by l_quantity order by l_quantity")
+# MERGE's source: one row per order key below half the largest one
+CACHE_SRC = ("create table memory.cache_src as select l_orderkey as k, l_quantity as q "
+             "from lineitem where l_linenumber = 1 and l_orderkey < {k}")
+CACHE_SRC_SHARE = 1 / 2
+CACHE_WRITES = (  # {k}: a share of the largest order key; each applied to numpy alike
+    ("delete", "delete from memory.big_qty where l_orderkey < {k}", 1 / 6),
+    ("update", "update memory.big_qty set l_quantity = l_quantity - 1 where l_orderkey < {k}", 1 / 3),
+    ("insert", "insert into memory.big_qty select l_orderkey, l_quantity from memory.big_qty "
+               "where l_orderkey >= {k}", 5 / 6),
+    ("merge", "merge into memory.big_qty b using memory.cache_src s on b.l_orderkey = s.k "
+              "when matched then update set l_quantity = s.q", 0),
+)
+# both leaves are memory tables: a write to the catalog moves both keys
+CACHE_MEMO = (
+    "select count(*), sum(b.l_quantity) from memory.big_qty b, memory.cache_src s "
+    "where b.l_orderkey = s.k and s.q < 30",
+    "select min(b.l_quantity), max(b.l_quantity), count(*) from memory.big_qty b, "
+    "memory.cache_src s where b.l_orderkey = s.k and s.q < 30",
+)
+CACHE_MEMO_WRITE = "delete from memory.cache_src where k < {k}"
+CACHE_ICEBERG = "select count(*) from iceberg.ice"
+CACHE_TRAVEL = 'select k from iceberg."ice@2" order by k'
+CACHE_COUNT = "select count(*) from memory.big_qty"
+CACHE_CROSS_SCALE = 0.01
+CACHE_TEST_FILE = "test_torch_result_cache"
+
+
+class TaskLog:
+    """Every task id the workers accept while installed (Worker.submit_task
+    wrapped), and every scan a task runs per table (LocalExecutor.table_page
+    wrapped): a hit schedules no task, and a memoized leaf runs no scan.
+    A task id is `<query id>_a<attempt>_f<fragment>_p<part>_t<try>`."""
+
+    def __init__(self):
+        self.tasks: list = []
+        self.scans: dict = {}
+        self._lock = threading.Lock()
+        self._plain = None
+
+    def install(self) -> None:
+        from trino_tpu_torch.exec.compiler import LocalExecutor
+        from trino_tpu_torch.runtime.worker import Worker
+
+        submit, page = Worker.submit_task, LocalExecutor.table_page
+        self._plain = (submit, page)
+        log = self
+
+        def submit_task(w, req):
+            with log._lock:
+                log.tasks.append(req["task_id"])
+            return submit(w, req)
+
+        def table_page(ex, catalog, table, *args, **kwargs):
+            with log._lock:
+                log.scans[table] = log.scans.get(table, 0) + 1
+            return page(ex, catalog, table, *args, **kwargs)
+
+        Worker.submit_task = submit_task
+        LocalExecutor.table_page = table_page
+
+    def uninstall(self) -> None:
+        from trino_tpu_torch.exec.compiler import LocalExecutor
+        from trino_tpu_torch.runtime.worker import Worker
+
+        if self._plain is not None:
+            Worker.submit_task, LocalExecutor.table_page = self._plain
+            self._plain = None
+
+    def of(self, qid: str) -> list:
+        with self._lock:
+            return [t for t in self.tasks if t.rsplit("_a", 1)[0] == qid]
+
+    def scan_total(self, *tables) -> int:
+        with self._lock:
+            return sum(self.scans.get(t, 0) for t in tables)
+
+
+def cache_run(runner, sql: str, what: str):
+    """`sql` through the coordinator's managed path: (rows, record, wall ms).
+    The record carries `cached` and the cache disposition."""
+    coord = runner.coordinator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qid = coord.submit_query(sql)
+    record = coord.queries[qid]
+    if not record["done"].wait(timeout=600):
+        fail(f"caches {what}: the statement never finished")
+    wall = (time.perf_counter() - t0) * 1e3
+    if record["sm"].state != "FINISHED":
+        fail(f"caches {what}: {record['sm'].state}: {record['sm'].error}")
+    return [tuple(r) for r in record["result"]], record, wall
+
+
+def cache_executed(log, rows_rec, what: str) -> int:
+    """A run that must have executed: not cached, and tasks scheduled."""
+    _rows, record, _wall = rows_rec
+    n = len(log.of(record["sm"].query_id))
+    if record.get("cached") or not n:
+        fail(f"caches {what}: expected an execution, got cached={record.get('cached')} "
+             f"with {n} tasks ({(record.get('cache') or {}).get('disposition')})")
+    return n
+
+
+def cache_hit(log, rows_rec, before: dict, what: str) -> dict:
+    """A run that must have been served: cached, no stage, no task, no kernel
+    launch and no device allocation since `before`."""
+    _rows, record, _wall = rows_rec
+    info = record.get("query_info") or {}
+    tasks = log.of(record["sm"].query_id)
+    launched = {k: v - before["launches"][k] for k, v in kernel_counts().items()}
+    allocated = cuda_allocations() - before["allocations"]
+    if record.get("cached") is not True or info.get("stage_count") or tasks:
+        fail(f"caches {what}: not a hit (cached={record.get('cached')}, stages "
+             f"{info.get('stage_count')}, tasks {tasks})")
+    if (info.get("cache") or {}).get("disposition") != "hit":
+        fail(f"caches {what}: disposition {info.get('cache')}")
+    if any(launched.values()) or allocated:
+        fail(f"caches {what}: a hit touched the card: launches {launched}, "
+             f"{allocated} device allocations")
+    return {"launches": sum(launched.values()), "allocations": allocated}
+
+
+def card_state() -> dict:
+    torch.cuda.synchronize()
+    return {"launches": kernel_counts(), "allocations": cuda_allocations()}
+
+
+def big_qty_rows(ok: np.ndarray, qty: np.ndarray) -> list:
+    """CACHE_AGG over the numpy copy of memory.big_qty (qty unscaled)."""
+    out = []
+    for q in np.unique(qty):
+        keys = ok[qty == q]
+        out.append((dec(int(q), 2), len(keys), exact_sum(keys), int(keys.min()), int(keys.max())))
+    return out
+
+
+def cache_hits(runner, log, queries, want, ordered) -> dict:
+    """Each statement once with the cache off (the cold run fills the workers'
+    scan caches), then executed warm (a miss that stores), then a hit; Q6 in
+    another text hits Q6's entry."""
+    coord = runner.coordinator
+    out, executed_tasks = {}, {}
+    for name, sql in dict({n: queries[n] for n in CACHE_QUERIES}, topn=TOPN).items():
+        coord.session.set("result_cache_enabled", "false")
+        cold = cache_run(runner, sql, f"{name} cold")
+        coord.session.set("result_cache_enabled", "true")
+        before = kernel_counts()
+        warm = cache_run(runner, sql, f"{name} warm")
+        executed_tasks[name] = cache_executed(log, warm, f"{name} warm")
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
+        state = card_state()
+        hit = cache_run(runner, sql, f"{name} hit")
+        touched = cache_hit(log, hit, state, f"{name} hit")
+        for label, run in (("cold", cold), ("warm", warm), ("hit", hit)):
+            rows_agree(run[0], want[name], name, f"caches {name} ({label}) vs tpch", ordered)
+        out[name] = {"cold_ms": cold[2], "executed_warm_ms": warm[2], "hit_ms": hit[2],
+                     "tasks_executed": executed_tasks[name], "launches_executed": launched,
+                     "hit_touched": touched}
+    state = card_state()
+    alike = cache_run(runner, CACHE_Q6_ALIKE, "q06 in another text")
+    cache_hit(log, alike, state, "q06 in another text")
+    rows_agree(alike[0], want["q06"], "q06", "caches q06 in another text vs tpch", ordered)
+    out["q06_alike_hit_ms"] = alike[2]
+    return out, executed_tasks
+
+
+def cache_admission(runner, log, engine) -> dict:
+    """At the session's default result_cache_min_recurrences the statement is
+    stored once its signature recurred that many times in the history."""
+    coord = runner.coordinator
+    need = int(coord.session.get("result_cache_min_recurrences"))
+    want = engine.query(CACHE_ADMIT)
+    dispositions = []
+    for i in range(need + 1):  # run n sees n - 1 records: run need + 1 stores
+        run = cache_run(runner, CACHE_ADMIT, f"admission run {i + 1}")
+        cache_executed(log, run, f"admission run {i + 1} of {need + 2}")
+        rows_match(run[0], want, f"caches admission run {i + 1} vs the TPC-H engine")
+        dispositions.append(run[1]["cache"]["disposition"])
+    state = card_state()
+    run = cache_run(runner, CACHE_ADMIT, "admission hit")
+    cache_hit(log, run, state, f"admission run {need + 2}")
+    rows_match(run[0], want, "caches admission hit vs the TPC-H engine")
+    return {"min_recurrences": need, "executed_runs": need + 1,
+            "dispositions": dispositions + [run[1]["cache"]["disposition"]]}
+
+
+def cache_invalidation(runner, log, li, iceberg, tables: dict) -> dict:
+    """The cluster's CTAS of lineitem's large quantities into memory.big_qty,
+    CACHE_AGG cached over it, then DELETE, UPDATE, INSERT and MERGE: after
+    each the next read executes and equals numpy over the changed table,
+    and the one after it hits.  Then an Iceberg table: an external commit
+    invalidates, a time-travel read bypasses.  Leaves the numpy copies of
+    the memory tables in `tables`."""
+    qty_all = np.asarray(li["l_quantity"], np.int64)
+    keys_all = np.asarray(li["l_orderkey"], np.int64)
+    big = qty_all > 4500
+    ok, qty = keys_all[big].copy(), qty_all[big].copy()
+    top = int(keys_all.max())
+    first = np.asarray(li["l_linenumber"], np.int64) == 1
+    src_cut = int(top * CACHE_SRC_SHARE)
+    src = first & (keys_all < src_cut)
+    src_q = dict(zip(keys_all[src].tolist(), qty_all[src].tolist()))
+    runner.query(CLUSTER_CTAS)
+    runner.query(CACHE_SRC.format(k=src_cut))
+    out = {"rows": len(ok), "writes": []}
+
+    def read_twice(label):
+        want = big_qty_rows(ok, qty)
+        miss = cache_run(runner, CACHE_AGG, f"aggregate after {label}")
+        cache_executed(log, miss, f"aggregate after {label}")
+        rows_match(miss[0], want, f"caches aggregate after {label} vs numpy")
+        state = card_state()
+        hit = cache_run(runner, CACHE_AGG, f"aggregate hit after {label}")
+        cache_hit(log, hit, state, f"aggregate hit after {label}")
+        rows_match(hit[0], want, f"caches aggregate hit after {label} vs numpy")
+        return miss[2], hit[2]
+
+    out["first"] = read_twice("the CTAS")
+    for label, sql, frac in CACHE_WRITES:
+        k = int(top * frac)
+        t0 = time.perf_counter()
+        runner.query(sql.format(k=k))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        if label == "delete":
+            ok, qty = ok[ok >= k], qty[ok >= k]
+        elif label == "update":
+            qty = np.where(ok < k, qty - 100, qty)
+        elif label == "insert":
+            ok, qty = np.concatenate([ok, ok[ok >= k]]), np.concatenate([qty, qty[ok >= k]])
+        else:
+            qty = np.array([src_q.get(o, q) for o, q in zip(ok.tolist(), qty.tolist())],
+                           np.int64)
+        miss_ms, hit_ms = read_twice(label)
+        out["writes"].append({"write": label, "write_ms": write_ms, "executed_ms": miss_ms,
+                              "hit_ms": hit_ms, "rows_after": len(ok)})
+    # an Iceberg table: the snapshot id is the version
+    runner.query("create table iceberg.ice (k bigint)")
+    runner.query("insert into iceberg.ice values (1), (2)")
+    run = cache_run(runner, CACHE_ICEBERG, "iceberg count")
+    cache_executed(log, run, "iceberg count")
+    state = card_state()
+    hit = cache_run(runner, CACHE_ICEBERG, "iceberg count hit")
+    cache_hit(log, hit, state, "iceberg count hit")
+    if run[0] != [(2,)] or hit[0] != [(2,)]:
+        fail(f"caches iceberg count: {run[0]}, {hit[0]} != [(2,)]")
+    iceberg.insert("ice", {"k": np.array([3], dtype=np.int64)})  # no engine hook
+    run = cache_run(runner, CACHE_ICEBERG, "iceberg count after an external commit")
+    cache_executed(log, run, "iceberg count after an external commit")
+    if run[0] != [(3,)]:
+        fail(f"caches iceberg count after an external commit: {run[0]} != [(3,)]")
+    for i in range(2):
+        run = cache_run(runner, CACHE_TRAVEL, f"time travel {i + 1}")
+        cache_executed(log, run, f"time travel {i + 1}")
+        if run[0] != [(1,), (2,)] or run[1]["cache"].get("disposition") != "bypass":
+            fail(f"caches time travel {i + 1}: {run[0]} ({run[1].get('cache')})")
+    out["iceberg"] = {"external_commit": "executed", "time_travel": "bypass"}
+    tables.update(ok=ok, qty=qty, src_q=src_q)
+    return out
+
+
+def memo_rows(ok, qty, src_q, which: int) -> list:
+    live = np.array([src_q.get(o, 10 ** 9) < 3000 for o in ok.tolist()], bool)
+    q = qty[live]
+    if which == 0:
+        return [(len(q), dec(exact_sum(q), 2))]
+    return [(dec(int(q.min()), 2), dec(int(q.max()), 2), len(q))]
+
+
+def cache_memo(runner, log, spool: str, tables: dict) -> dict:
+    """CACHE_MEMO's first join (a miss that adopts both leaves' spooled
+    outputs), then the second statement over the same leaves: the memo seeds
+    them, no scan runs; then a write, and the memo misses."""
+    coord = runner.coordinator
+    coord.session.set("retry_policy", "TASK")
+    coord.session.set("exchange_spool_dir", spool)
+    coord.session.set("join_distribution_type", "PARTITIONED")
+    # admission never opens: reuse can only come from the memo
+    coord.session.set("result_cache_min_recurrences", "99")
+    ok, qty, src_q = tables["ok"], tables["qty"], tables["src_q"]
+    tables = ("big_qty", "cache_src")
+    try:
+        s0 = log.scan_total(*tables)
+        first = cache_run(runner, CACHE_MEMO[0], "memo first join")
+        n_first = cache_executed(log, first, "memo first join")
+        rows_match(first[0], memo_rows(ok, qty, src_q, 0), "caches memo first join vs numpy")
+        if first[1].get("memo_misses", 0) < 2 or len(coord.fragment_memo) < 2:
+            fail(f"caches memo first join: {first[1].get('memo_misses')} misses, "
+                 f"{len(coord.fragment_memo)} entries (both leaves memoizable)")
+        s1 = log.scan_total(*tables)
+        second = cache_run(runner, CACHE_MEMO[1], "memo second join")
+        n_second = len(log.of(second[1]["sm"].query_id))
+        rows_match(second[0], memo_rows(ok, qty, src_q, 1), "caches memo second join vs numpy")
+        s2 = log.scan_total(*tables)
+        if second[1].get("memo_hits", 0) < 2 or s2 != s1 or n_second >= n_first:
+            fail(f"caches memo second join: {second[1].get('memo_hits')} memo hits, "
+                 f"{s2 - s1} scans, {n_second} tasks against {n_first}")
+        cut = int(max(src_q) * 0.1)
+        runner.query(CACHE_MEMO_WRITE.format(k=cut))
+        src_q = {k: v for k, v in src_q.items() if k >= cut}
+        after = cache_run(runner, CACHE_MEMO[0], "memo join after a write")
+        rows_match(after[0], memo_rows(ok, qty, src_q, 0), "caches memo after a write vs numpy")
+        s3 = log.scan_total(*tables)
+        if after[1].get("memo_hits") or s3 == s2:
+            fail(f"caches memo after a write: {after[1].get('memo_hits')} memo hits, "
+                 f"{s3 - s2} scans")
+    finally:
+        for k, v in (("retry_policy", "NONE"), ("join_distribution_type", "AUTOMATIC"),
+                     ("result_cache_min_recurrences", "0")):
+            coord.session.set(k, v)
+    return {"first_ms": first[2], "second_ms": second[2], "after_write_ms": after[2],
+            "tasks": [n_first, n_second], "scans": [s1 - s0, s2 - s1, s3 - s2],
+            "memo_hits_second": second[1].get("memo_hits", 0),
+            "memo_misses_after_write": after[1].get("memo_misses", 0)}
+
+
+def cache_dedup(runner, log, sql: str, want, ordered, executed_tasks: int) -> dict:
+    """Two identical Q18 statements, the first held at the workers' fault hook
+    (TaskGate) until the second waits on it as a follower: one execution by
+    task count, one cached record, equal rows."""
+    coord = runner.coordinator
+    cache = coord.result_cache
+    cache.clear()
+    followers = []
+    plain = cache.begin
+
+    def begin(key):
+        leader, fl = plain(key)
+        if not leader:
+            followers.append(key)
+        return leader, fl
+
+    gate = TaskGate()
+    gate.attach(runner.workers)
+    cache.begin = begin
+    try:
+        gate.arm(lambda t: True)
+        q1 = coord.submit_query(sql)
+        wait_for(lambda: gate.held, "dedup: the leader's tasks never reached the gate",
+                 phase="caches")
+        q2 = coord.submit_query(sql)
+        wait_for(lambda: followers, "dedup: the second statement never followed",
+                 phase="caches")
+    finally:
+        gate.release()
+        gate.detach(runner.workers)
+        cache.begin = plain
+    for qid in (q1, q2):
+        if not coord.queries[qid]["done"].wait(timeout=600):
+            fail("caches dedup: a statement never finished")
+    r1, r2 = coord.queries[q1], coord.queries[q2]
+    for r in (r1, r2):
+        if r["sm"].state != "FINISHED":
+            fail(f"caches dedup: {r['sm'].state}: {r['sm'].error}")
+        rows_agree([tuple(x) for x in r["result"]], want, "q18", "caches dedup q18 vs tpch",
+                   ordered)
+    t1, t2 = log.of(q1), log.of(q2)
+    cached = [bool(r1.get("cached")), bool(r2.get("cached"))]
+    if t2 or len(t1) != executed_tasks or cached != [False, True]:
+        fail(f"caches dedup: tasks {len(t1)} + {len(t2)} (one execution has "
+             f"{executed_tasks}), cached {cached}")
+    return {"tasks": [len(t1), len(t2)], "cached": cached, "held": len(gate.held)}
+
+
+def cache_protocol(runner, engine) -> dict:
+    """PREPARE of the Q6 shape through StatementClient and EXECUTE with 20
+    seeded bindings, each against Engine.query with the literals (a binding
+    that hits the plan cache adds no NVRTC compile and no learned-capacity
+    entry); a header-only client; DEALLOCATE; the DB-API driver binding a
+    quote-bearing parameter; the EXPLAIN ANALYZE EXECUTE footer."""
+    from trino_tpu_torch.client import StatementClient
+    from trino_tpu_torch.client.dbapi import connect
+    from trino_tpu_torch.ops.cuda import fused_codegen
+
+    coord = runner.coordinator
+    sql = FASTPATH["q6_shape"]
+    c = StatementClient(coord.url)
+    c.execute(f"prepare cache_q6 from {sql}")
+    if c.prepared.get("cache_q6") != sql:
+        fail(f"caches protocol: PREPARE echoed {c.prepared} into the client")
+    surface = coord._stmt_surface
+
+    def learned():
+        return len(surface.executor._learned_caps) + sum(
+            len(w.scan_cache.learned_caps) for w in runner.workers)
+
+    rng = np.random.default_rng(FASTPATH_SEED)
+    laps, plan_cache, first = [], [], None
+    for i in range(FASTPATH_BINDINGS):
+        args = fastpath_binding("q6_shape", rng)
+        c0, k0 = len(fused_codegen._COMPILES), learned()
+        t0 = time.perf_counter()
+        _cols, got = c.execute(f"execute cache_q6 using {', '.join(args)}")
+        laps.append((time.perf_counter() - t0) * 1e3)
+        info = surface.fastpath().last_info
+        plan_cache.append(info.cache)
+        if info.cache == "hit" and (len(fused_codegen._COMPILES) > c0 or learned() > k0):
+            fail(f"caches protocol binding {i}: a plan-cache hit added "
+                 f"{len(fused_codegen._COMPILES) - c0} NVRTC compiles and "
+                 f"{learned() - k0} learned-capacity entries")
+        want = engine.query(with_literals(sql, args))
+        rows_match(protocol_rows(got, want, "caches protocol"), want,
+                   f"caches protocol binding {i} ({args}) vs Engine.query")
+        if first is None:
+            first = (args, got)
+    if plan_cache.count("hit") < FASTPATH_BINDINGS - 1:
+        fail(f"caches protocol: plan cache {plan_cache}")
+    c2 = StatementClient(coord.url)  # only the header registry: no server session
+    c2.prepared["cache_q6"] = sql
+    _cols, got = c2.execute(f"execute cache_q6 using {', '.join(first[0])}")
+    if got != first[1]:
+        fail(f"caches protocol: the header-only client got {got}, not {first[1]}")
+    c.execute("deallocate prepare cache_q6")
+    if "cache_q6" in c.prepared:
+        fail("caches protocol: DEALLOCATE left cache_q6 in the client's registry")
+    with connect(coord.url) as conn:
+        cur = conn.cursor()
+        cur.execute("select count(*) from nation where n_name = ?", ("x' or '1'='1",))
+        quoted = cur.fetchone()
+        cur.execute("select count(*) from nation where n_name = ?", ("FRANCE",))
+        france = cur.fetchone()
+        bound = [k for k in conn._client.prepared if k.startswith("dbapi_")]
+    if quoted != (0,) or france != (1,) or not bound:
+        fail(f"caches protocol dbapi: {quoted}, {france}, registry {bound}")
+    c.prepared["cache_ef"] = "select count(*) from nation where n_regionkey = ?"
+    c.execute("execute cache_ef using 1")
+    _cols, rows = c.execute("explain analyze execute cache_ef using 1")
+    text = "\n".join(r[0] for r in rows)
+    if "-- fastpath:" not in text or "plan_cache=hit" not in text:
+        fail(f"caches protocol: EXPLAIN ANALYZE EXECUTE footer: {text[-400:]}")
+    return {"bindings": FASTPATH_BINDINGS, "execute_first_ms": laps[0],
+            "execute_warm_ms": statistics.median(laps[1:]),
+            "plan_cache_hits": plan_cache.count("hit"), "dbapi": [quoted, france],
+            "footer": [ln for ln in text.splitlines() if ln.startswith("-- fastpath:")]}
+
+
+def cache_restart(runner, log) -> dict:
+    """A cached count; the coordinator killed; the table changed while it is
+    down; the restarted coordinator comes up cold and answers the new count."""
+    conn = runner.catalogs.get("memory")
+    run = cache_run(runner, CACHE_COUNT, "count before the restart")
+    cache_executed(log, run, "count before the restart")
+    state = card_state()
+    hit = cache_run(runner, CACHE_COUNT, "count hit before the restart")
+    cache_hit(log, hit, state, "count hit before the restart")
+    n = run[0][0][0]
+    port = runner.kill_coordinator()
+    wait_port_free(port)
+    top = 10 ** 9
+    conn.insert("big_qty", {"l_orderkey": np.array([top, top + 1], np.int64),
+                            "l_quantity": np.array([4600, 4700], np.int64)})
+    coord = runner.restart_coordinator(port=port, session=runner.session_props)
+    if coord.result_cache.stats()["entries"]:
+        fail("caches restart: the restarted coordinator's cache is not empty")
+    after = cache_run(runner, CACHE_COUNT, "count after the restart")
+    cache_executed(log, after, "count after the restart")
+    if after[0] != [(n + 2,)]:
+        fail(f"caches restart: {after[0]} != [({n + 2},)] (stale: {n})")
+    return {"count_before": n, "count_after": n + 2, "cached_after": False}
+
+
+def cache_cross_check() -> dict:
+    """The result-cache test file's statement sequence at SF 0.01 (its memory
+    table `t` and TPC-H): a card cluster against a CPU cluster, rows and
+    dispositions step by step."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    mod = nested_test_module(CACHE_TEST_FILE)
+    runners = []
+    try:
+        for device in (torch.device("cuda", 0), "cpu"):
+            r = mod.start_cluster(mod.make_table(), device=device)
+            r.register_catalog("tpch", TpchConnector(CACHE_CROSS_SCALE))
+            runners.append(r)
+        steps = []
+        for i, sql in enumerate(mod.CROSS_STEPS):
+            got = [cache_run(r, sql, f"SF {CACHE_CROSS_SCALE} step {i}") for r in runners]
+            (g, gr, _), (h, hr, _) = got
+            rows_match(g, h, f"caches SF {CACHE_CROSS_SCALE} step {i} ({sql}): cuda vs cpu")
+            if bool(gr.get("cached")) != bool(hr.get("cached")):
+                fail(f"caches SF {CACHE_CROSS_SCALE} step {i} ({sql}): cached "
+                     f"{gr.get('cached')} on the card, {hr.get('cached')} on the CPU")
+            steps.append(bool(gr.get("cached")))
+        return {"statements": len(steps), "cached": sum(steps)}
+    finally:
+        for r in runners:
+            r.stop()
+
+
+def caches_phase(engine, scale, tpch_rows):
+    """The coordinator's result cache, the fragment memo and prepared
+    statements over the protocol on the card at TPC-H `scale`, three workers
+    on one card with the result cache ON: hits (Q1, Q3, Q6, Q18, TOPN: the
+    hit schedules no task, launches no kernel, allocates nothing on the
+    card), admission by recurrences, invalidation by DELETE / UPDATE /
+    INSERT / MERGE and by an external Iceberg commit, time travel bypassing,
+    the fragment memo, in-flight dedup, a cold restart, the protocol's
+    prepared statements; then the test file's sequence at SF 0.01, card
+    cluster against CPU cluster.  Returns (the path's launch counts, phase
+    seconds)."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.connectors.iceberg import IcebergConnector
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector, tpch_data
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.runtime.session import PROPERTIES
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    t_phase = time.perf_counter()
+    queries, ordered = tpch_queries()
+    ordered = dict(ordered, topn=True)
+    want = dict(tpch_rows, topn=engine.query(TOPN))
+    li = tpch_data("lineitem", scale)
+    engine.executor.drop_scans()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.set_policy(kernels.KernelPolicy())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_caches_")
+    dev0 = torch.device("cuda", 0)
+    log = TaskLog()
+    log.install()
+    runner = None
+    reset_kernel_counts()  # every count to 0 just before the path, read just after
+    try:
+        iceberg = IcebergConnector(os.path.join(tmp, "warehouse"))
+        runner = DistributedQueryRunner(num_workers=CLUSTER_WORKERS,
+                                        devices=[dev0] * CLUSTER_WORKERS,
+                                        journal_path=os.path.join(tmp, "journal.jsonl"))
+        runner.register_catalog("tpch", TpchConnector(scale))
+        runner.register_catalog("memory", MemoryConnector())
+        runner.register_catalog("iceberg", iceberg)
+        runner.start()
+        # the result cache is on (the session's default); every stored
+        # statement is admitted at once except in the admission step
+        runner.session_props = {"result_cache_min_recurrences": "0"}
+        runner.coordinator.session.set("result_cache_min_recurrences", "0")
+        if not runner.coordinator.session.get("result_cache_enabled"):
+            fail("caches: the result cache is not on by default")
+
+        def step(name, fn):
+            t0 = time.perf_counter()
+            got = fn()
+            emit({"phase": "caches", "step": name, "correct": True, **got,
+                  "seconds": round(time.perf_counter() - t0, 3)})
+
+        executed = {}
+
+        def hits():
+            got, tasks = cache_hits(runner, log, queries, want, ordered)
+            executed.update(tasks)
+            return {"statements": got}
+
+        def admission():
+            coord = runner.coordinator
+            coord.session.set("result_cache_min_recurrences",
+                              str(PROPERTIES["result_cache_min_recurrences"].default))
+            try:
+                return cache_admission(runner, log, engine)
+            finally:
+                coord.session.set("result_cache_min_recurrences", "0")
+
+        step("hits", hits)
+        step("admission", admission)
+        tables: dict = {}  # the numpy copies of the memory tables
+        step("invalidation", lambda: cache_invalidation(runner, log, li, iceberg, tables))
+        step("memo", lambda: cache_memo(runner, log, os.path.join(tmp, "spool"), tables))
+        step("dedup", lambda: cache_dedup(runner, log, queries["q18"], want["q18"], ordered,
+                                          executed["q18"]))
+        step("protocol", lambda: cache_protocol(runner, engine))
+        step("restart", lambda: cache_restart(runner, log))
+        counts = kernel_counts()
+    finally:
+        log.uninstall()
+        if runner is not None:
+            runner.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in KERNEL_NAMES:
+        if counts[k] < 1:
+            fail(f"caches path never launched {k}: {counts}")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cross = cache_cross_check()
+    emit({"phase": "caches", "step": "cross_scale", "scale": CACHE_CROSS_SCALE, "correct": True,
+          **cross, "seconds": round(time.perf_counter() - t0, 3)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "caches", "step": "summary", "scale": scale, "seconds": round(seconds, 1),
+          "launches": counts})
+    return counts, seconds
+
+
 def sass_report() -> dict:
     """Atomic and local-memory instructions in the SASS of kernel 1 (both
     routes), of kernels 3 and 4 (one instantiation per key width W, with
@@ -5850,6 +6470,7 @@ def main(argv=None) -> int:
     sass = sass_report()
     resilience_counts, resilience_s = resilience_phase(engine, args.scale, tpch_rows)
     governance_counts, governance_s = governance_phase(engine, args.scale, tpch_rows)
+    caches_counts, caches_s = caches_phase(engine, args.scale, tpch_rows)
     for r in rows:
         by_path = {"main_path": counts[r["name"]], "tpch": tpch_counts[r["name"]],
                    "tpcds": tpcds_counts[r["name"]], "statements": statements_counts[r["name"]],
@@ -5857,7 +6478,8 @@ def main(argv=None) -> int:
                    "fastpath": fastpath_counts[r["name"]], "lake": lake_counts[r["name"]],
                    "distributed": dist_counts[r["name"]], "cluster": cluster_counts[r["name"]],
                    "resilience": resilience_counts[r["name"]],
-                   "governance": governance_counts[r["name"]]}
+                   "governance": governance_counts[r["name"]],
+                   "caches": caches_counts[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["launches"] < 1:
@@ -5870,7 +6492,7 @@ def main(argv=None) -> int:
           "spill_seconds": round(spill_s, 1), "fastpath_seconds": round(fastpath_s, 1),
           "lake_seconds": round(lake_s, 1), "distributed_seconds": round(dist_s, 1),
           "cluster_seconds": round(cluster_s, 1), "resilience_seconds": round(resilience_s, 1),
-          "governance_seconds": round(governance_s, 1)})
+          "governance_seconds": round(governance_s, 1), "caches_seconds": round(caches_s, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ zero-retrace witness, with the port's own counters), bindings equal to the
 literal query, the plan-cache events, quote-bearing strings staying data,
 invalidation by DML, the kill switch, arity errors, batched and fallback
 windows — and every EXECUTE and EXPLAIN EXECUTE footer held against the
-reference engine's."""
+reference engine's.  Then the protocol cases on a port cluster of CPU workers:
+PREPARE / EXECUTE / DEALLOCATE through `StatementClient` (and a client holding
+only the header registry), the EXPLAIN ANALYZE EXECUTE footer, DB-API binding."""
 
 import re
 import threading
@@ -455,3 +457,77 @@ def test_a_lambda_body_refuses_a_parameter(engine):
         got = engine.execute(f"EXECUTE lam USING {k}")
         assert got == engine.query(sql.replace("?", str(k)))
         assert fp.last_info.baked == 1 and fp.last_info.bound == 0
+
+
+# ------------------------------------------------------------------- protocol
+@pytest.fixture(scope="module")
+def cluster():
+    """A port cluster of two CPU workers over TPC-H SF 0.01."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.testing import DistributedQueryRunner
+
+    runner = DistributedQueryRunner(num_workers=2, default_catalog="tpch", device="cpu")
+    runner.register_catalog("tpch", TpchConnector(0.01))
+    runner.start()
+    yield runner
+    runner.stop()
+
+
+def test_protocol_prepare_execute_deallocate(cluster, engine):
+    from trino_tpu_torch.client import StatementClient
+
+    c = StatementClient(cluster.coordinator.url)
+    sql = (
+        "select l_returnflag, count(*) c from lineitem where l_quantity < ? "
+        "group by l_returnflag order by l_returnflag"
+    )
+    c.execute(f"PREPARE proto FROM {sql}")
+    # server-side PREPARE echoes into the client registry (addedPrepare)
+    assert c.prepared.get("proto") == sql
+
+    cols, rows = c.execute("EXECUTE proto USING 24.0")
+    assert cols == ["l_returnflag", "c"], cols
+    want = engine.query(sql.replace("?", "24.0"))
+    assert [tuple(r) for r in rows] == want
+
+    # a FRESH client holding only the header registry (no server session):
+    # the X-Trino-Prepared-Statement header alone must resolve the EXECUTE
+    c2 = StatementClient(cluster.coordinator.url)
+    c2.prepared["proto"] = sql
+    cols2, rows2 = c2.execute("EXECUTE proto USING 24.0")
+    assert (cols2, rows2) == (cols, rows)
+
+    c.execute("DEALLOCATE PREPARE proto")
+    assert "proto" not in c.prepared  # deallocatedPrepare delta applied
+
+
+def test_protocol_explain_analyze_footer(cluster):
+    from trino_tpu_torch.client import StatementClient
+
+    c = StatementClient(cluster.coordinator.url)
+    c.prepared["ef"] = "select count(*) from nation where n_regionkey = ?"
+    _, rows = c.execute("EXECUTE ef USING 1")
+    assert [tuple(r) for r in rows] == [(5,)]
+    _, rows = c.execute("EXPLAIN ANALYZE EXECUTE ef USING 1")
+    text = "\n".join(r[0] for r in rows)
+    assert "-- fastpath:" in text, text
+    assert "plan_cache=hit" in text, text
+
+
+def test_dbapi_binds_instead_of_splicing(cluster):
+    from trino_tpu_torch.client.dbapi import connect
+
+    conn = connect(cluster.coordinator.url)
+    cur = conn.cursor()
+    # a quote-bearing parameter must not terminate the predicate
+    cur.execute("select count(*) from nation where n_name = ?", ("x' or '1'='1",))
+    assert cur.fetchone() == (0,)
+    cur.execute("select count(*) from nation where n_name = ?", ("FRANCE",))
+    assert cur.fetchone() == (1,)
+    # the statement went through the prepared registry, not text splicing
+    assert any(k.startswith("dbapi_") for k in conn._client.prepared)
+    # repeats reuse the registry slot (one server plan-cache entry)
+    n = len(conn._client.prepared)
+    cur.execute("select count(*) from nation where n_name = ?", ("KENYA",))
+    assert cur.fetchone() == (1,)
+    assert len(conn._client.prepared) == n

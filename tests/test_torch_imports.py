@@ -110,6 +110,15 @@ GOVERNANCE_MODULES = (
 )
 
 
+# the result cache, the fragment memo, the history store that admission reads,
+# and the clients that carry prepared statements over the protocol: each must
+# be walked too, and each is host-only
+CACHE_MODULES = (
+    "trino_tpu_torch.runtime.resultcache", "trino_tpu_torch.runtime.history",
+    "trino_tpu_torch.client.client", "trino_tpu_torch.client.dbapi",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = _ROOT
@@ -142,14 +151,12 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert set(COMPILE_PLANE_MODULES) <= walked, sorted(
         set(COMPILE_PLANE_MODULES) - walked)
     assert set(GOVERNANCE_MODULES) <= walked, sorted(set(GOVERNANCE_MODULES) - walked)
+    assert set(CACHE_MODULES) <= walked, sorted(set(CACHE_MODULES) - walked)
 
 
-@pytest.mark.parametrize("name", GOVERNANCE_MODULES)
-def test_governance_modules_are_host_only_and_pick_no_device(name):
-    """The governance modules count bytes, leases, splits and journal
-    records on the host: none imports torch, jax or the JAX package, and
-    none names a device (so none can pick the CPU where the caller asked
-    for nothing); the nodes that run them hold the device."""
+def _assert_host_only(name):
+    """`name` imports neither torch, jax nor the JAX package, and names no
+    device (so it cannot pick the CPU where the caller asked for nothing)."""
     path = os.path.join(_ROOT, *name.split(".")) + ".py"
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
@@ -167,6 +174,23 @@ def test_governance_modules_are_host_only_and_pick_no_device(name):
                 f"{path}:{node.lineno} names a device")
         if isinstance(node, ast.arg):
             assert node.arg not in ("device", "devices"), f"{path}: takes a device"
+
+
+@pytest.mark.parametrize("name", GOVERNANCE_MODULES)
+def test_governance_modules_are_host_only_and_pick_no_device(name):
+    """The governance modules count bytes, leases, splits and journal
+    records on the host: none imports torch, jax or the JAX package, and
+    none names a device; the nodes that run them hold the device."""
+    _assert_host_only(name)
+
+
+@pytest.mark.parametrize("name", CACHE_MODULES)
+def test_cache_and_client_modules_are_host_only_and_pick_no_device(name):
+    """The result cache and fragment memo keep host rows and spool paths,
+    the history store host records, the clients HTTP requests: none imports
+    torch, jax or the JAX package, and none names a device; the coordinator
+    and the workers that use them hold the device."""
+    _assert_host_only(name)
 
 
 def test_governed_nodes_raise_without_a_device(tmp_path):

@@ -386,6 +386,10 @@ class FragmentMemo:
     A *memoizable* fragment is a leaf (no exchange inputs) whose subtree is
     only TableScan/Filter/Project — the common scan+filter prefix of
     concurrent dashboard queries — over versioned, non-time-travel tables.
+    A Compact over such a subtree is memoizable too: the optimizer wraps
+    every filter of a table past 65,536 estimated rows in one, and it only
+    gathers the live rows (the JAX package's memo declines it, so no
+    filtered scan of a large table is ever reused there).
     Its key hashes the fragment plan JSON, the output partitioning
     (kind/keys/fan-in/fan-out) and the version vector, so a reused dir is
     bit-compatible with the consumer that reads it."""
@@ -402,14 +406,14 @@ class FragmentMemo:
         ``payload_base`` is the coordinator's already-built task payload —
         fragment JSON and output partitioning come from it verbatim, so the
         hash covers exactly what a consumer task would observe."""
-        from ..plan.nodes import Filter, Project, TableScan, walk
+        from ..plan.nodes import Compact, Filter, Project, TableScan, walk
 
         if frag.inputs or frag.output_kind == "result":
             return None
         nodes = list(walk(frag.root))
         if not any(isinstance(n, TableScan) for n in nodes):
             return None
-        if not all(isinstance(n, (TableScan, Filter, Project)) for n in nodes):
+        if not all(isinstance(n, (TableScan, Filter, Project, Compact)) for n in nodes):
             return None
         vvec = plan_version_vector(frag.root, catalogs)
         if not vvec:  # None (time-travel) or empty (no scans)
